@@ -1,0 +1,384 @@
+"""One fully classified ADMM leg for a shared-structure batch.
+
+Port of ``osqp_tpu/ops/solve_kernel.py::admm_solve_shared``. For CUDA
+tensors the leg runs in the hand-written Hopper kernel
+``osqp_tpu_torch/csrc/solve_kernel.cu``; for CPU tensors it runs in
+:func:`admm_solve_shared_reference`, the plain PyTorch twin of the kernel
+body, which takes the same steps in the same order:
+
+* each lane iterates w=ρ(z−t), rhs=σx−q+wA, x̃=rhs·αR⁻¹, z̃=rhs·αR⁻¹Aᵀ,
+  relaxation and the clip to [l, u] while its status is RUNNING;
+* every ``check_every`` global iterations (offset ``it0``) each running
+  lane is classified (Non_convex > Solved > Primal_infeasible >
+  Dual_infeasible) from unscaled residuals and the δy/δx certificate tests
+  over the snapshot window, and classified lanes freeze;
+* the x/t snapshot is taken after every 4th check for lanes still running;
+* lanes in groups at or past ``live_groups`` are copied through.
+
+Lanes are independent, so the group size changes nothing numerically; it
+only sets the granularity of ``live_groups`` (lane compaction).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import constants as C
+from ..linalg import with_precision
+from .shared_iter import dot3, split_bf16
+
+_DIV_GUARD = 1e-10
+
+#: Shared memory a Hopper block may use (H100: 227 KB of the SM's 256 KB).
+SMEM_LIMIT = 232448
+#: Shared memory of one SM (228 KB), of which each resident block also
+#: takes 1 KB for itself.
+SM_SMEM = 233472
+_BLOCK_RESERVED = 1024
+#: SMs on an H100: the group rule wants at least this many blocks.
+NUM_SMS = 132
+#: Threads per block and per-lane reduction slots of the CUDA kernel
+#: (``NT`` and ``NQ`` in csrc/solve_kernel.cu).
+_NT = 256
+_NQ = 15
+#: Group sizes the CUDA kernel is instantiated for.
+GROUPS = (16, 8, 4, 2, 1)
+
+
+class LegScalars(NamedTuple):
+    """Scalar inputs of one leg, each already rounded to the compute dtype
+    (``solve_kernel.py:347-353`` casts every scalar before the kernel)."""
+    sigma: float
+    alpha: float
+    max_iter: int
+    check_every: int
+    eps_abs: float
+    eps_rel: float
+    cinv: float       # effective (1 under scaled_termination)
+    eps_pinf: float
+    eps_dinf: float
+    cinv_raw: float   # true cost scaling, for the certificate tests
+    it0: int          # global iteration offset of this leg
+
+
+def smem_bytes(G, n, m, itemsize, tf32=False):
+    """Dynamic shared memory of one CUDA block: the iterate state
+    x, x_prev, q, rhs (n each) and t, t_prev, z, l, u, w (m each) per lane,
+    the tf32 lo halves of rhs and w, packed stats and per-lane scalars,
+    and the cross-warp reduction slots. Mirrors ``smem_elems`` in the
+    CUDA source."""
+    per_lane = 4 * n + 6 * m + (n + m if tf32 else 0) + 8 + 4
+    return (G * per_lane + _NQ * G * (_NT // 32)) * itemsize
+
+
+def pick_group(B, n, m, itemsize, tf32=False):
+    """Hopper group rule: the largest G whose block leaves room for a
+    second block on its SM and that still gives at least one block per
+    SM; the smallest G that fits when the batch cannot fill the card.
+
+    The kernel is bound by the latency of its operator and shared-memory
+    loads, so a second resident block (more warps to switch between) pays
+    more than the operator reuse a larger G buys: at B=4096, n=128, m=256
+    on an H100 this picks G=8 in float32 and tf32 and G=4 in float64, the
+    fastest of the sizes measured (PERF.md)."""
+    fits = [G for G in GROUPS
+            if smem_bytes(G, n, m, itemsize, tf32) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"one lane of the leg kernel at n={n}, m={m} needs "
+            f"{smem_bytes(1, n, m, itemsize, tf32)} bytes of shared memory, "
+            f"more than the {SMEM_LIMIT} a block may use")
+    for G in fits:
+        two_per_sm = (smem_bytes(G, n, m, itemsize, tf32) + _BLOCK_RESERVED
+                      <= SM_SMEM // 2)
+        if two_per_sm and -(-B // G) >= NUM_SMS:
+            return G
+    return fits[-1]
+
+
+def _rowmax(M):
+    return torch.amax(torch.abs(M), dim=1, keepdim=True)
+
+
+def admm_solve_shared_reference(Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv,
+                                Dinv, D_r, E_r, Einv_r, Dinv_r, q, lb, ub,
+                                x0, y0, z0, status0, sc: LegScalars,
+                                live_groups: int, group: int,
+                                tf32: bool = False):
+    """Plain PyTorch twin of the leg kernel (``_kernel`` at
+    ``osqp_tpu/ops/solve_kernel.py:44-300``) on the α-folded operators.
+
+    Takes the CUDA kernel's inputs and returns its outputs
+    (x, y, z, x_prev, y_prev, stats) with stats packed (B, 8): status,
+    iters, pri, dua, prn, dun, 0, 0. Runs on any device; the loop checks
+    for an all-classified batch after each check only, since statuses
+    change nowhere else."""
+    B, n = x0.shape
+    dt, dev = x0.dtype, x0.device
+
+    def s(v):
+        return torch.tensor(v, dtype=dt, device=dev)
+
+    sigma, alpha = s(sc.sigma), s(sc.alpha)
+    eps_abs, eps_rel = s(sc.eps_abs), s(sc.eps_rel)
+    cinv, cinv_raw = s(sc.cinv), s(sc.cinv_raw)
+    eps_pinf, eps_dinf = s(sc.eps_pinf), s(sc.eps_dinf)
+    beta = 1.0 - alpha
+    ce = sc.check_every
+    L = min(B, live_groups * group)
+
+    x_o, y_o, z_o = x0.clone(), y0.clone(), z0.clone()
+    xp_o, yp_o = x0.clone(), y0.clone()
+    stats = torch.zeros((B, 8), dtype=dt, device=dev)
+    stats[:, 0] = status0.to(dt)
+    if L == 0:
+        return x_o, y_o, z_o, xp_o, yp_o, stats
+
+    rho, rho_inv = rho[None, :], rho_inv[None, :]
+    Einv, Dinv = Einv[None, :], Dinv[None, :]
+    D_r, E_r = D_r[None, :], E_r[None, :]
+    Einv_r, Dinv_r = Einv_r[None, :], Dinv_r[None, :]
+    q, lb, ub = q[:L], lb[:L], ub[:L]
+    st = stats[:L]
+    st[:, 2:4] = math.inf
+    if tf32:
+        A_s, Rinv_s = split_bf16(A), split_bf16(Rinv_a)
+        RAt_s = split_bf16(RAt_a)
+
+    x = x0[:L].clone()
+    t = rho_inv * y0[:L]
+    z = z0[:L].clone()
+    xp, tp = x.clone(), t.clone()
+    # the bounds' unscaled copies and infinity masks do not change in a leg
+    u_us, l_us = Einv_r * ub, Einv_r * lb
+    u_inf = u_us >= C.INFTY_THRESH
+    l_inf = l_us <= -C.INFTY_THRESH
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    it = 0
+    alldone = bool((st[:, 0] != C.RUNNING).all())
+    while it < sc.max_iter and not alldone:
+        live = st[:, 0:1] == C.RUNNING
+        w = rho * (z - t)
+        if tf32:
+            rhs = sigma * x - q + dot3(split_bf16(w), A_s, dt)
+            r_s = split_bf16(rhs)
+            xt_a = dot3(r_s, Rinv_s, dt)
+            zt_a = dot3(r_s, RAt_s, dt)
+        else:
+            rhs = sigma * x - q + w @ A
+            xt_a = rhs @ Rinv_a
+            zt_a = rhs @ RAt_a
+        x_new = xt_a + beta * x
+        v = zt_a + beta * z + t
+        z_new = torch.clamp(v, lb, ub)
+        t_new = v - z_new
+        x = torch.where(live, x_new, x)
+        t = torch.where(live, t_new, t)
+        z = torch.where(live, z_new, z)
+        it += 1
+
+        g_it = sc.it0 + it
+        if ce <= 0 or g_it % ce != 0:
+            continue
+        # --- residual convergence (effective scalings) ---
+        ys = rho * t
+        Ax = x @ At
+        Px = x @ P
+        Aty = ys @ A
+        pri = _rowmax(Einv * (Ax - z))
+        prn = torch.maximum(_rowmax(Einv * Ax), _rowmax(Einv * z))
+        dua = cinv * _rowmax(Dinv * (Px + q + Aty))
+        dun = cinv * torch.maximum(
+            torch.maximum(_rowmax(Dinv * Px), _rowmax(Dinv * Aty)),
+            _rowmax(Dinv * q))
+        solved = ((pri <= eps_abs + eps_rel * prn)
+                  & (dua <= eps_abs + eps_rel * dun))
+        bad = (torch.isnan(pri) | torch.isnan(dua)
+               | (pri > C.OSQP_INFTY) | (dua > C.OSQP_INFTY))
+        # --- primal infeasibility test on δy (true scalings) ---
+        dy = cinv_raw * E_r * rho * (t - tp)
+        p_nrm = _rowmax(dy)
+        dyn_ = dy * (1.0 / torch.clamp(p_nrm, min=_DIV_GUARD))
+        At_dy = Dinv_r * ((Einv_r * dyn_) @ A)
+        dyp = torch.clamp(dyn_, min=0.0)
+        dym = torch.clamp(dyn_, max=0.0)
+        bound_ok = torch.all((~u_inf | (dyp <= eps_pinf))
+                             & (~l_inf | (-dym <= eps_pinf)),
+                             dim=1, keepdim=True)
+        lhs = torch.sum(torch.where(u_inf, zero, u_us * dyp)
+                        + torch.where(l_inf, zero, l_us * dym),
+                        dim=1, keepdim=True)
+        prim = ((p_nrm > eps_pinf) & (_rowmax(At_dy) <= eps_pinf)
+                & bound_ok & (lhs < -eps_pinf))
+        # --- dual infeasibility test on δx (true scalings) ---
+        dx_bar = x - xp
+        dx = D_r * dx_bar
+        d_nrm = _rowmax(dx)
+        d_s = 1.0 / torch.clamp(d_nrm, min=_DIV_GUARD)
+        dxn = dx * d_s
+        dxn_bar = dx_bar * d_s
+        P_dx = cinv_raw * Dinv_r * (dxn_bar @ P)
+        q_u = cinv_raw * Dinv_r * q
+        cond_q = torch.sum(q_u * dxn, dim=1, keepdim=True) < -eps_dinf
+        A_dx = Einv_r * (dxn_bar @ At)
+        cond_A = torch.all((u_inf | (A_dx <= eps_dinf))
+                           & (l_inf | (A_dx >= -eps_dinf)),
+                           dim=1, keepdim=True)
+        dual = ((d_nrm > eps_dinf) & (_rowmax(P_dx) <= eps_dinf)
+                & cond_q & cond_A)
+
+        code = torch.full_like(pri, C.RUNNING)
+        code = torch.where(dual, C.DUAL_INFEASIBLE, code)
+        code = torch.where(prim, C.PRIMAL_INFEASIBLE, code)
+        code = torch.where(solved, C.SOLVED, code)
+        code = torch.where(bad, C.NON_CONVEX, code)
+        was_live = st[:, 0:1] == C.RUNNING
+        newly = was_live & (code != C.RUNNING)
+        st[:, 1:2] = torch.where(newly, s(g_it), st[:, 1:2])
+        new_cols = torch.cat([code, st[:, 1:2], pri, dua, prn, dun], dim=1)
+        st[:, 0:6] = torch.where(was_live, new_cols, st[:, 0:6])
+
+        # certificate snapshot after every 4th check, running lanes only;
+        # the classification above read the window before this update
+        still = st[:, 0:1] == C.RUNNING
+        if g_it % (4 * ce) == 0:
+            xp = torch.where(still, x, xp)
+            tp = torch.where(still, t, tp)
+        alldone = not bool(still.any())
+
+    running = st[:, 0] == C.RUNNING
+    st[:, 1] = torch.where(running, s(sc.it0 + it), st[:, 1])
+    x_o[:L], y_o[:L], z_o[:L] = x, rho * t, z
+    xp_o[:L], yp_o[:L] = xp, rho * tp
+    return x_o, y_o, z_o, xp_o, yp_o, stats
+
+
+def _cuda_leg(Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv, Dinv, D_r, E_r,
+              Einv_r, Dinv_r, q, lb, ub, x0, y0, z0, status0,
+              sc: LegScalars, live_groups: int, group: int,
+              tf32: bool = False):
+    """Launch the Hopper leg kernel on the current stream. Same inputs and
+    outputs as :func:`admm_solve_shared_reference`."""
+    from ._build import load_library
+
+    B, n = x0.shape
+    m = y0.shape[1]
+    dt = x0.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"leg kernel takes float32 or float64, not {dt}")
+    if tf32 and dt != torch.float32:
+        raise TypeError("the tf32 leg needs float32 tensors")
+    if group not in GROUPS:
+        raise ValueError(f"group {group} not in {GROUPS}")
+    if smem_bytes(group, n, m, x0.element_size(), tf32) > SMEM_LIMIT:
+        raise ValueError(f"group {group} does not fit shared memory at "
+                         f"n={n}, m={m}")
+    floats = [Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv, Dinv, D_r, E_r,
+              Einv_r, Dinv_r, q, lb, ub, x0, y0, z0]
+    # Rinv_a RAt_a P A At | rho rho_inv Einv Dinv D_r E_r Einv_r Dinv_r |
+    # q l u x0 y0 z0
+    shapes = [(n, n), (n, m), (n, n), (m, n), (n, m),
+              (m,), (m,), (m,), (n,), (n,), (m,), (m,), (n,),
+              (B, n), (B, m), (B, m), (B, n), (B, m), (B, m)]
+    for k, (tsr, shp) in enumerate(zip(floats, shapes)):
+        if tsr.dtype != dt or tuple(tsr.shape) != shp:
+            raise ValueError(
+                f"leg kernel input {k}: expected a {dt} tensor of shape "
+                f"{shp}, got {tsr.dtype} {tuple(tsr.shape)}")
+    for k, tsr in enumerate(floats):
+        if not tsr.is_cuda:
+            raise ValueError(f"leg kernel input {k} is on {tsr.device}, "
+                             f"not on a CUDA device")
+    floats = [tsr.contiguous() for tsr in floats]
+    st0 = status0.to(device=x0.device, dtype=torch.int32).contiguous()
+    outs = [torch.empty((B, n), dtype=dt, device=x0.device),
+            torch.empty((B, m), dtype=dt, device=x0.device),
+            torch.empty((B, m), dtype=dt, device=x0.device),
+            torch.empty((B, n), dtype=dt, device=x0.device),
+            torch.empty((B, m), dtype=dt, device=x0.device),
+            torch.empty((B, 8), dtype=dt, device=x0.device)]
+    lib = load_library()
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    ptr = [ctypes.c_void_p(tsr.data_ptr()) for tsr in floats + [st0] + outs]
+    err = lib.osqp_admm_solve_shared(
+        1 if dt == torch.float64 else 0, 1 if tf32 else 0, *ptr,
+        B, n, m, group, int(live_groups),
+        sc.sigma, sc.alpha, sc.max_iter, sc.check_every, sc.eps_abs,
+        sc.eps_rel, sc.cinv, sc.eps_pinf, sc.eps_dinf, sc.cinv_raw, sc.it0,
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"leg kernel launch failed: CUDA error {err} "
+            f"({lib.osqp_cuda_error_string(err).decode()})")
+    admm_solve_shared.launches += 1
+    return tuple(outs)
+
+
+@with_precision
+def admm_solve_shared(Rinv, P, A, rho_vec, rho_inv, Einv, Dinv, cinv,
+                      q, l, u, x, y, z, sigma, alpha, max_iter, check_every,
+                      eps_abs, eps_rel, scal=None, eps_pinf=1e-4,
+                      eps_dinf=1e-4, status0=None, it0=0, live_groups=None,
+                      group=None, tf32: bool = False):
+    """One fully classified solve leg for a shared-structure batch.
+
+    Runs up to ``max_iter`` iterations starting from global iteration
+    ``it0``, classifying every lane every ``check_every`` global
+    iterations; ``scal`` supplies the true scalings for the certificate
+    tests (``Einv``/``Dinv``/``cinv`` are the effective termination
+    scalings); ``status0`` carries lane statuses across legs and
+    ``live_groups`` skips trailing groups. ``group`` defaults to
+    :func:`pick_group`; a ragged last group is masked.
+
+    CUDA tensors run the Hopper kernel (and count in
+    ``admm_solve_shared.launches``); CPU tensors run the plain twin.
+
+    Returns (x, y, z, x_prev, y_prev, status, iters, pri_res, dua_res,
+    pri_norm, dua_norm), all with leading B."""
+    B, n = x.shape
+    m = y.shape[1]
+    dt, dev = x.dtype, x.device
+    G = group if group is not None else pick_group(B, n, m,
+                                                   x.element_size(), tf32)
+    if live_groups is None:
+        live_groups = -(-B // G)
+    if status0 is None:
+        status0 = torch.full((B,), C.RUNNING, dtype=torch.int32, device=dev)
+    if scal is None:
+        D_r = Dinv_r = torch.ones((n,), dtype=dt, device=dev)
+        E_r = Einv_r = torch.ones((m,), dtype=dt, device=dev)
+        cinv_r = 1.0
+    else:
+        D_r, E_r, Dinv_r, Einv_r = scal.D, scal.E, scal.Dinv, scal.Einv
+        cinv_r = scal.cinv
+
+    def f(v):
+        return torch.as_tensor(v, dtype=dt).item()
+
+    sc = LegScalars(
+        sigma=f(sigma), alpha=f(alpha), max_iter=int(max_iter),
+        check_every=int(check_every), eps_abs=f(eps_abs),
+        eps_rel=f(eps_rel), cinv=f(cinv), eps_pinf=f(eps_pinf),
+        eps_dinf=f(eps_dinf), cinv_raw=f(cinv_r), it0=int(it0))
+    # α folded into both operators, outside the kernel, at full precision
+    alpha_c = torch.tensor(sc.alpha, dtype=dt, device=dev)
+    RAt = alpha_c * (Rinv @ A.T)
+    Rinv_a = alpha_c * Rinv
+    leg = _cuda_leg if x.is_cuda else admm_solve_shared_reference
+    x_o, y_o, z_o, xp_o, yp_o, stats = leg(
+        Rinv_a, RAt, P, A, A.T, rho_vec, rho_inv, Einv, Dinv, D_r, E_r,
+        Einv_r, Dinv_r, q, l, u, x, y, z, status0, sc, int(live_groups), G,
+        tf32)
+    return (x_o, y_o, z_o, xp_o, yp_o,
+            stats[:, 0].to(torch.int32), stats[:, 1].to(torch.int32),
+            stats[:, 2], stats[:, 3], stats[:, 4], stats[:, 5])
+
+
+#: Launches of the CUDA leg kernel in this process (the plain twin does
+#: not count). Reset it to 0 before a run to see what the run launched.
+admm_solve_shared.launches = 0
