@@ -4,21 +4,39 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the torch and CUDA versions and the card's name and power limit;
-2. builds the leg kernel (csrc/solve_kernel.cu) with nvcc and times the build;
-3. holds the kernel against its plain PyTorch twin on the card, one leg of
-   100 iterations on 256 bench-shape QPs, in float64, float32 and tf32;
-4. drives the slice at full size — BatchedSolver(kkt_mode="shared") on
-   B=4096 QPs with n=128, m=256, eps 1e-3, float32: a cold solve, prepare,
-   five warm prepared re-solves and two three-step rollouts — with the launch
-   counter reset just before and read just after, checks 64 sampled lanes
-   in float64 numpy, and times the same cold solve with every leg forced
-   through the plain twin;
-5. prints one JSON line per the kernels it ran, the nvidia-smi line, and
-   last the device line ``{"ok": true, "device": {...}}``.
+2. builds the three kernels (csrc/*.cu, one nvcc process per source, all at
+   once) and times the build;
+3. holds the leg kernel against its plain PyTorch twin on the card, one leg
+   of 100 iterations on 256 bench-shape QPs, in float64, float32 and tf32,
+   and times one leg at B=4096;
+4. drives the shared-structure path at full size — BatchedSolver(
+   kkt_mode="shared") on B=4096 QPs with n=128, m=256, eps 1e-3, float32:
+   a cold solve, prepare, five warm prepared re-solves and two three-step
+   rollouts — checks 64 sampled lanes in float64 numpy, and times the same
+   cold solve with every leg forced through the plain twin;
+5. holds the iteration kernel (csrc/shared_iter.cu) against its twin for
+   one 25-iteration chunk at B=4096, n=128, m=256 in float32, lowp and
+   tf32, and times both;
+6. drives the mixed-precision path at full size — the same batch with
+   Settings(mixed_precision=True): a cold solve, prepare and three warm
+   prepared re-solves — checks every lane Solved, 64 lanes in float64
+   numpy, and prints the split of bf16 and full-precision chunks;
+7. builds B=4096 QPs with n=128, m=256 in which every lane has its own P and
+   A (the bench generator, one matrix draw per lane), holds the fused kernel
+   (csrc/fused_iter.cu) against its twin for one 25-iteration chunk, then
+   drives the per-lane path — BatchedSolver(kkt_mode="fused").solve cold —
+   checks every lane Solved, statuses equal to kkt_mode="inverse" on the
+   same data, and 64 lanes in float64 numpy;
+8. prints one JSON line of the three kernels (launch counts of their own
+   paths, agreement with the twins, times, and the least time the card
+   could take for the same work), the nvidia-smi line, and last the device
+   line ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, so the exit code is non-zero and no device line
-is printed. Without a GPU, or outside a checkout, it exits non-zero too.
-The compiler's register/shared-memory report goes to chiprun_out/.
+Each path (4, 6, 7) runs with every launch counter set to 0 just before it
+and read just after. Any failed check raises, so the exit code is non-zero
+and no device line is printed. Without a GPU, or outside a checkout, it
+exits non-zero too. The compiler's register/shared-memory report goes to
+the output directory beside the run (``out_dir`` in ``main``).
 """
 
 import json
@@ -34,6 +52,10 @@ import numpy as np
 B_MAIN, N, M = 4096, 128, 256
 EPS = 1e-3
 SEED = 0
+K_CHUNK = 25
+#: H100 SXM peaks (NVIDIA's data sheet, dense): float32 outside the tensor
+#: cores, bf16 in them, and the device memory rate.
+PEAK_F32, PEAK_BF16, MEM_RATE = 67e12, 989e12, 3.35e12
 
 
 def make_batch(B, n, m, seed=0):
@@ -47,6 +69,59 @@ def make_batch(B, n, m, seed=0):
     width = 1.0 + rng.rand(B, m)
     center = rng.randn(B, m) * 0.1
     return P, q, A, center - width, center + width
+
+
+def make_per_lane_batch(torch, B, n, m, seed=0):
+    """The bench generator with one matrix draw per lane: every QP has its
+    own P = MᵀM/n + 0.1 I and A. Returns float64 numpy arrays."""
+    rng = np.random.RandomState(seed)
+    Mx = torch.as_tensor(rng.randn(B, n, n) / np.sqrt(n), device="cuda")
+    P = (Mx.mT @ Mx + 0.1 * torch.eye(n, dtype=Mx.dtype,
+                                      device="cuda")).cpu().numpy()
+    del Mx
+    A = rng.randn(B, m, n) / np.sqrt(n)
+    q = rng.randn(B, n)
+    width = 1.0 + rng.rand(B, m)
+    center = rng.randn(B, m) * 0.1
+    return P, q, A, center - width, center + width
+
+
+def bound(flops, nbytes, peak):
+    """Least time in ms for the work: operations at ``peak`` or bytes at
+    the memory rate, whichever is longer, and which of the two it is."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / MEM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def residual_check(tag, out, P, q, A, l, u, idx):
+    """Float64 numpy check of sampled lanes at the solver's eps (0.1% slack
+    for the float32 rounding of x, y, z); P and A are shared (2-D) or per
+    lane (3-D)."""
+    xs = out.x.double().cpu().numpy()[idx]
+    ys = out.y.double().cpu().numpy()[idx]
+    zs = out.z.double().cpu().numpy()[idx]
+    require(np.isfinite(xs).all() and xs.shape == (len(idx), N),
+            f"{tag}: bad x")
+    if P.ndim == 2:
+        Ax, Px, Aty = xs @ A.T, xs @ P, ys @ A
+    else:
+        Pi, Ai = P[idx], A[idx]
+        Ax = np.einsum("bmn,bn->bm", Ai, xs)
+        Px = np.einsum("bnk,bk->bn", Pi, xs)
+        Aty = np.einsum("bmn,bm->bn", Ai, ys)
+    inf = lambda v: np.abs(v).max(axis=1)  # noqa: E731
+    pri = inf(Ax - zs)
+    dua = inf(Px + q[idx] + Aty)
+    pri_thr = EPS + EPS * np.maximum(inf(Ax), inf(zs))
+    dua_thr = EPS + EPS * np.maximum(np.maximum(inf(Px), inf(Aty)),
+                                     inf(q[idx]))
+    viol = np.maximum(l[idx] - zs, zs - u[idx]).max()
+    say(f"{tag} float64 check, {len(idx)} lanes: max pri/threshold "
+        f"{(pri / pri_thr).max():.4f}, max dua/threshold "
+        f"{(dua / dua_thr).max():.4f}, max bound violation {viol:.2e}")
+    require(np.all(pri <= 1.001 * pri_thr), f"{tag}: primal residual above eps")
+    require(np.all(dua <= 1.001 * dua_thr), f"{tag}: dual residual above eps")
+    require(viol <= 1e-5, f"{tag}: z outside [l, u]")
 
 
 def say(*a):
@@ -123,8 +198,22 @@ def main():
     from osqp_tpu_torch.batch import BatchedSolver
     from osqp_tpu_torch.linalg import precision_scope
     from osqp_tpu_torch.ops import _build
+    from osqp_tpu_torch.ops import fused_iter as FI
+    from osqp_tpu_torch.ops import shared_iter as SI
     from osqp_tpu_torch.ops import solve_kernel as SK
     from osqp_tpu_torch.settings import Settings
+
+    kernels = {"admm_solve_shared": SK.admm_solve_shared,
+               "admm_iterate_shared": SI.admm_iterate_shared,
+               "admm_iterate": FI.admm_iterate}
+
+    def reset_counts():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: fn.launches for k, fn in kernels.items()}
 
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
@@ -137,7 +226,6 @@ def main():
     lib_path, log = _build.build(verbose=True)
     build_s = time.perf_counter() - t0
     (out_dir / "ptxas.txt").write_text(log)
-    SK.admm_solve_shared.launches = 0
     _build.load_library()
     say(f"[2] built {lib_path.name} in {build_s:.1f} s "
         f"(compiler report in {out_dir / 'ptxas.txt'})")
@@ -189,6 +277,16 @@ def main():
             f"{leg_ms2:.3f} ms, plain twin {plain_ms:.3f} ms, max |dx| "
             f"{main_err:.3e} over {int(same.sum())} lanes with equal "
             f"iterations (tolerance 1e-3)")
+        # the work this leg's data needs: each lane's own iterations and
+        # checks (every 25th), each operator and lane vector moved once
+        its = k[6].double().cpu().numpy()
+        leg_flops = float(np.sum(its * 2 * (2 * M * N + N * N)
+                                 + (its // 25) * 2 * (4 * M * N + 2 * N * N)))
+        leg_bytes = 4 * (2 * N * N + 3 * M * N
+                         + B_MAIN * (4 * N + 7 * M + 8) + B_MAIN)
+        leg_bound, leg_by = bound(leg_flops, leg_bytes, PEAK_F32)
+        say(f"[3] leg bound {leg_bound:.3f} ms ({leg_by}): "
+            f"{leg_flops / 1e9:.2f} GFLOP, {leg_bytes / 1e6:.1f} MB")
 
     # ---- 4. the slice at full size ----
     P, q, A, l, u = make_batch(B_MAIN, N, M, SEED)
@@ -207,7 +305,7 @@ def main():
     drift = torch.as_tensor(0.005 * rng.randn(N), dtype=torch.float32,
                             device=dev)
 
-    SK.admm_solve_shared.launches = 0
+    reset_counts()
     cold_ms, cold = wall_ms(torch, lambda: solver.solve(Pd, qd, Ad, ld, ud),
                             1)
     cold_launches = SK.admm_solve_shared.launches
@@ -229,8 +327,8 @@ def main():
                                                     qlu[2]), 3,
             x0=x, y0=y), 1)
         roll_ms.append(t)
-    torch.cuda.synchronize()
-    launches = SK.admm_solve_shared.launches
+    path4 = counts()
+    launches = path4["admm_solve_shared"]
 
     st = cold.status.cpu().numpy()
     it = cold.iter.cpu().numpy()
@@ -247,29 +345,11 @@ def main():
     say(f"[4] 3-step rollout, twice: {roll_ms[0]:.1f} and {roll_ms[1]:.1f} "
         f"ms, mean iterations per step "
         f"{roll['iter'].float().mean(dim=1).tolist()}")
-    say(f"[4] leg-kernel launches over the main path: {launches}")
+    say(f"[4] launches over the shared-structure path: {path4}")
 
     # independent float64 check of 64 sampled lanes at the solver's eps
-    # (0.1% slack for the float32 rounding of x, y, z)
     idx = np.random.RandomState(1).choice(B_MAIN, 64, replace=False)
-    xs = cold.x.double().cpu().numpy()[idx]
-    ys = cold.y.double().cpu().numpy()[idx]
-    zs = cold.z.double().cpu().numpy()[idx]
-    require(np.isfinite(xs).all() and xs.shape == (64, N), "bad x")
-    Ax, Px, Aty = xs @ A.T, xs @ P, ys @ A
-    inf = lambda v: np.abs(v).max(axis=1)  # noqa: E731
-    pri = inf(Ax - zs)
-    dua = inf(Px + q[idx] + Aty)
-    pri_thr = EPS + EPS * np.maximum(inf(Ax), inf(zs))
-    dua_thr = EPS + EPS * np.maximum(np.maximum(inf(Px), inf(Aty)),
-                                     inf(q[idx]))
-    bound = np.maximum(l[idx] - zs, zs - u[idx]).max()
-    say(f"[4] float64 check, 64 lanes: max pri/threshold "
-        f"{(pri / pri_thr).max():.4f}, max dua/threshold "
-        f"{(dua / dua_thr).max():.4f}, max bound violation {bound:.2e}")
-    require(np.all(pri <= 1.001 * pri_thr), "primal residual above eps")
-    require(np.all(dua <= 1.001 * dua_thr), "dual residual above eps")
-    require(bound <= 1e-5, "z outside [l, u]")
+    residual_check("[4]", cold, P, q, A, l, u, idx)
 
     # the same cold solve, kernel legs against plain-twin legs, in turns
     def cold_solve():
@@ -291,16 +371,203 @@ def main():
         f", plain-twin legs {statistics.median(plain_t):.2f} ms "
         f"{[round(t, 2) for t in plain_t]}")
 
-    say(json.dumps({"kernels": [{
-        "name": "admm_solve_shared",
-        "route": "cuda",
-        "source": "osqp_tpu_torch/csrc/solve_kernel.cu",
-        "replaces": "osqp_tpu/ops/solve_kernel.py:44",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": leg_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # ---- 5. the iteration kernel against its twin, one chunk ----
+    def plain_iterate():
+        return mock.patch.object(SI, "_cuda_iterate",
+                                 SI.admm_iterate_shared_reference)
+
+    # Tolerances relative to max(1, max |output|): float32 and tf32 1e-4
+    # (summation order); lowp 5e-2, since a float32 sum that differs in the
+    # last bit can round w or rhs to the neighbouring bf16 value (2^-8
+    # relative) and 25 iterations carry such steps on.
+    iter_rows = {}
+    with precision_scope():
+        args, _ = leg_setup(torch, torch.float32, B_MAIN)
+        (Rinv, _, Ab, rho_vec, rho_inv, _, _, _, qb, lb, ub, x0, y0,
+         z0, sigma, alpha) = args[:16]
+        it_args = (Rinv, Ab, rho_vec, rho_inv, qb, lb, ub, x0, y0, z0,
+                   sigma, alpha, K_CHUNK)
+        iter_flops = 2.0 * (2 * M * N + N * N) * B_MAIN * K_CHUNK
+        for name, kw2, tol in (("f32", {}, 1e-4),
+                               ("lowp", dict(lowp=True), 5e-2),
+                               ("tf32", dict(tf32=True), 1e-4)):
+            k = SI.admm_iterate_shared(*it_args, **kw2)
+            with plain_iterate():
+                p = SI.admm_iterate_shared(*it_args, **kw2)
+            torch.cuda.synchronize()
+            scale = max(1.0, max(float(v.abs().max()) for v in p))
+            err = max(float((a - b).abs().max()) for a, b in zip(k, p))
+            say(f"[5] {name} chunk B={B_MAIN} K={K_CHUNK}: max |kernel - "
+                f"plain| over x, y, z, x_prev, y_prev {err:.3e} (scale "
+                f"{scale:.2f}, tolerance {tol:g} of it)")
+            require(err <= tol * scale, f"[5] {name}: outputs differ by {err}")
+            ms = cuda_ms(torch, lambda: SI.admm_iterate_shared(*it_args,
+                                                               **kw2), 5)
+            with plain_iterate():
+                pms = cuda_ms(torch, lambda: SI.admm_iterate_shared(
+                    *it_args, **kw2), 5)
+            op_bytes = 2 if name == "lowp" else 4
+            nbytes = ((N * N + 2 * M * N) * op_bytes
+                      + 4 * (2 * M + B_MAIN * (4 * N + 7 * M)))
+            if name == "f32":
+                b_ms, b_by = bound(iter_flops, nbytes, PEAK_F32)
+            else:  # bf16 operands: one product (lowp) or three (tf32)
+                b_ms, b_by = bound(iter_flops * (3 if name == "tf32" else 1),
+                                   nbytes, PEAK_BF16)
+            iter_rows[name] = dict(err=err, ms=ms, plain_ms=pms,
+                                   bound_ms=b_ms, bound_by=b_by)
+            say(f"[5] {name}: kernel {ms:.3f} ms, plain twin {pms:.3f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+
+    # ---- 6. the mixed-precision path at full size ----
+    mp = BatchedSolver(Settings(eps_abs=EPS, eps_rel=EPS, verbose=False,
+                                dtype=np.float32, mixed_precision=True),
+                       kkt_mode="shared", device="cuda")
+    chunks = {"bf16": 0, "full": 0}
+    real_iterate = SI._cuda_iterate
+
+    def counting(*a, **kw):
+        chunks["bf16" if kw.get("lowp") else "full"] += 1
+        return real_iterate(*a, **kw)
+
+    reset_counts()
+    with mock.patch.object(SI, "_cuda_iterate", counting):
+        mp_cold_ms, mp_cold = wall_ms(
+            torch, lambda: mp.solve(Pd, qd, Ad, ld, ud), 1)
+        mp.prepare(Pd, Ad, q=qd)
+        o = mp.solve_prepared(qd, ld, ud)
+        mp_warm, mp_iters = [], []
+        for qk in q_warm[:3]:
+            t, o = wall_ms(torch, lambda: mp.solve_prepared(
+                qk, ld, ud, x0=o.x, y0=o.y), 1)
+            require(bool((o.status == C.SOLVED).all()),
+                    "[6] warm mixed-precision re-solve failed")
+            mp_warm.append(t)
+            mp_iters.append(o.iter.float().mean().item())
+    path6 = counts()
+    st6 = mp_cold.status.cpu().numpy()
+    say(f"[6] mixed-precision cold solve B={B_MAIN}: {mp_cold_ms:.1f} ms, "
+        f"solved {int((st6 == C.SOLVED).sum())}/{B_MAIN}, iterations mean "
+        f"{mp_cold.iter.float().mean().item():.1f} max "
+        f"{int(mp_cold.iter.max())}; three warm prepared re-solves "
+        f"{[round(t, 1) for t in mp_warm]} ms, mean iterations {mp_iters}")
+    say(f"[6] chunks over the mixed-precision path: {chunks['bf16']} bf16, "
+        f"{chunks['full']} full precision; launches {path6}")
+    require(np.all(st6 == C.SOLVED), "[6] cold solve: not every lane Solved")
+    require(np.array_equal(st6, st), "[6] statuses differ from phase 4")
+    require(path6["admm_iterate_shared"] > 0,
+            "[6] the mixed-precision path never launched its kernel")
+    residual_check("[6]", mp_cold, P, q, A, l, u, idx)
+    # the JSON row is the variant the path launched most
+    iter_variant = "lowp" if chunks["bf16"] >= chunks["full"] else "f32"
+
+    # ---- 7. the fused kernel and the per-lane path at full size ----
+    t0 = time.perf_counter()
+    Pp, qp, Ap, lp, up = make_per_lane_batch(torch, B_MAIN, N, M, SEED)
+    say(f"[7] per-lane batch (each lane its own P, A) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    Ppd, Apd, qpd, lpd, upd = (torch.as_tensor(v, dtype=torch.float32,
+                                               device="cuda")
+                               for v in (Pp, Ap, qp, lp, up))
+    with precision_scope():
+        from osqp_tpu_torch.batch_core import _batched_factor
+        from osqp_tpu_torch.core import (build_rho_vec, constraint_masks,
+                                         scale_problem)
+        from osqp_tpu_torch.types import QPData
+        sd, _ = scale_problem(QPData(Ppd, qpd, Apd, lpd, upd), 10)
+        loose, eq = constraint_masks(sd.l, sd.u)
+        rv, ri = build_rho_vec(loose, eq, torch.full(
+            (B_MAIN, 1), 0.1, dtype=torch.float32, device="cuda"))
+        Rinv_b = _batched_factor(sd.P, sd.A, torch.tensor(1e-6), rv,
+                                 "inverse")
+        zf = lambda k: torch.zeros((B_MAIN, k), dtype=torch.float32,  # noqa
+                                   device="cuda")
+        f_args = (Rinv_b, sd.A, sd.q, sd.l, sd.u, rv, ri, zf(N), zf(M),
+                  zf(M), 1e-6, 1.6, K_CHUNK)
+
+        def plain_fused():
+            return mock.patch.object(FI, "_cuda_iterate",
+                                     FI.admm_iterate_reference)
+
+        k = FI.admm_iterate(*f_args)
+        with plain_fused():
+            p = FI.admm_iterate(*f_args)
+        torch.cuda.synchronize()
+        scale = max(1.0, max(float(v.abs().max()) for v in p))
+        fused_err = max(float((a - b).abs().max()) for a, b in zip(k, p))
+        say(f"[7] fused chunk B={B_MAIN} K={K_CHUNK} f32 (operators staged: "
+            f"{FI.staged_fits(N, M, 4)}): max |kernel - plain| {fused_err:.3e}"
+            f" (scale {scale:.2f}, tolerance 1e-4 of it)")
+        require(fused_err <= 1e-4 * scale,
+                f"[7] fused kernel differs by {fused_err}")
+        fused_ms = cuda_ms(torch, lambda: FI.admm_iterate(*f_args), 5)
+        with plain_fused():
+            fused_plain_ms = cuda_ms(torch, lambda: FI.admm_iterate(*f_args),
+                                     3)
+        fused_flops = 2.0 * (2 * M * N + N * N) * B_MAIN * K_CHUNK
+        fused_bytes = 4 * B_MAIN * (N * N + M * N + 4 * N + 9 * M)
+        fused_bound, fused_by = bound(fused_flops, fused_bytes, PEAK_F32)
+        say(f"[7] fused: kernel {fused_ms:.3f} ms, plain twin "
+            f"{fused_plain_ms:.3f} ms, bound {fused_bound:.4f} ms "
+            f"({fused_by}: {fused_flops / 1e9:.2f} GFLOP, "
+            f"{fused_bytes / 1e6:.0f} MB)")
+        del sd, Rinv_b, f_args, k, p
+
+    lane_settings = Settings(eps_abs=EPS, eps_rel=EPS, verbose=False,
+                             dtype=np.float32)
+    fused = BatchedSolver(lane_settings, kkt_mode="fused", device="cuda")
+    inverse = BatchedSolver(lane_settings, kkt_mode="inverse", device="cuda")
+    reset_counts()
+    f_ms, f_out = wall_ms(torch, lambda: fused.solve(Ppd, qpd, Apd, lpd,
+                                                     upd), 1)
+    path7 = counts()
+    i_ms, i_out = wall_ms(torch, lambda: inverse.solve(Ppd, qpd, Apd, lpd,
+                                                       upd), 1)
+    st7 = f_out.status.cpu().numpy()
+    it7 = f_out.iter.cpu().numpy()
+    say(f"[7] fused cold solve B={B_MAIN}: {f_ms:.1f} ms, solved "
+        f"{int((st7 == C.SOLVED).sum())}/{B_MAIN}, iterations mean "
+        f"{it7.mean():.1f} max {it7.max()}, rho updates max "
+        f"{int(f_out.rho_updates.max())}; launches {path7}")
+    say(f"[7] inverse cold solve: {i_ms:.1f} ms, equal iterations "
+        f"{float(np.mean(i_out.iter.cpu().numpy() == it7)):.4f}")
+    require(np.all(st7 == C.SOLVED), "[7] fused: not every lane Solved")
+    require(np.array_equal(st7, i_out.status.cpu().numpy()),
+            "[7] fused and inverse statuses differ")
+    require(path7["admm_iterate"] > 0,
+            "[7] the per-lane path never launched the fused kernel")
+    residual_check("[7]", f_out, Pp, qp, Ap, lp, up, idx)
+    lane_t = {"fused": [], "inverse": []}
+    for mode in ("inverse", "fused", "fused", "inverse"):
+        eng = fused if mode == "fused" else inverse
+        t, _ = wall_ms(torch, lambda: eng.solve(Ppd, qpd, Apd, lpd, upd), 1)
+        lane_t[mode].append(t)
+    say(f"[7] cold solves after the first, in turns: fused "
+        f"{[round(t, 1) for t in lane_t['fused']]} ms, inverse "
+        f"{[round(t, 1) for t in lane_t['inverse']]} ms")
+
+    ir = iter_rows[iter_variant]
+    rows = [
+        dict(name="admm_solve_shared", source="solve_kernel.cu",
+             replaces="osqp_tpu/ops/solve_kernel.py:44", launches=launches,
+             max_abs_err=main_err, ms=leg_ms, plain_ms=plain_ms,
+             bound_ms=leg_bound, bound_by=leg_by),
+        dict(name="admm_iterate_shared", source="shared_iter.cu",
+             replaces="osqp_tpu/ops/shared_iter.py:50",
+             launches=path6["admm_iterate_shared"], max_abs_err=ir["err"],
+             ms=ir["ms"], plain_ms=ir["plain_ms"], bound_ms=ir["bound_ms"],
+             bound_by=ir["bound_by"], variant=iter_variant),
+        dict(name="admm_iterate", source="fused_iter.cu",
+             replaces="osqp_tpu/ops/fused_iter.py:30",
+             launches=path7["admm_iterate"], max_abs_err=fused_err,
+             ms=fused_ms, plain_ms=fused_plain_ms, bound_ms=fused_bound,
+             bound_by=fused_by),
+    ]
+    for r in rows:
+        # no single PyTorch call computes K ADMM iterations
+        r.update(route="cuda", source="osqp_tpu_torch/csrc/" + r["source"],
+                 library_ms=None)
+    say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,19 @@
-"""Batched QP solving front end (``osqp_tpu/batch.py``), shared mode.
+"""Batched QP solving front end (``osqp_tpu/batch.py``).
 
 ``BatchedSolver(kkt_mode="shared")`` solves a batch of QPs that share one P
-and A, on the device it was given. One-shot solves go through
+and A. One-shot solves go through
 :func:`osqp_tpu_torch.shared_core.solve_shared`; the prepared workspace
 (``prepare``/``solve_prepared``/``solve_rollout``) keeps the scaled data and
 the adapted KKT factor across re-solves, the MPC and serving loop.
+``mixed_precision`` runs its bf16-then-full-precision chunks there.
 
-Not ported yet, and refused rather than served by another path: the
-per-lane engines (``kkt_mode`` other than "shared"), ``mesh``, ``polish``,
-``time_limit`` and ``mixed_precision``.
+``kkt_mode`` "inverse" (the default), "chol" and "fused" solve a batch
+whose lanes each have their own P and A in the per-lane engine
+(:mod:`osqp_tpu_torch.batch_core`); a 2-D P or A is broadcast to the batch.
+
+Solves run on the solver's device, the GPU unless the caller passes
+``device="cpu"``. Not ported yet, and refused rather than served by another
+path: ``mesh``, ``polish`` and ``time_limit``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import numpy as np
 import torch
 
 from . import constants as C
+from .batch_core import KKT_MODES
+from .batch_core import solve_batch as _per_lane_solve
 from .core import dyn_from_settings, torch_dtype
 from .linalg import precision_scope
 from .settings import Settings
@@ -29,7 +36,7 @@ from .shared_core import (
     solve_batch_shared_fixed,
     solve_shared,
 )
-from .types import SolveOutput, solution_present
+from .types import QPData, SolveOutput, solution_present
 
 
 def _sanitize_starts(x0, y0):
@@ -61,9 +68,11 @@ def _rho_value(rho0):
 
 
 def _prepared_solve(Pb, Ab, scal, q, l, u, x0, y0, dyn,
-                    factor0: FactorCache, adaptive: bool, tf32: bool):
+                    factor0: FactorCache, adaptive: bool, lowp: bool,
+                    tf32: bool):
     """Prepared re-solve: scale per-lane vectors with the cached (D, E, c),
-    start from the cached factor, return (out, updated factor)."""
+    start from the cached factor, return (out, updated factor). ``lowp``
+    applies to the adaptive engine only, as in the JAX package."""
     l = torch.clamp(l, -C.OSQP_INFTY, C.OSQP_INFTY)
     u = torch.clamp(u, -C.OSQP_INFTY, C.OSQP_INFTY)
     qb = scal.c * scal.D * q
@@ -76,42 +85,46 @@ def _prepared_solve(Pb, Ab, scal, q, l, u, x0, y0, dyn,
     if adaptive:
         return solve_batch_shared(Pb, Ab, qb, lb, ub, scal, dyn, xb, yb, zb,
                                   factor0=factor0, with_factor=True,
-                                  tf32=tf32)
+                                  lowp=lowp, tf32=tf32)
     return solve_batch_shared_fixed(Pb, Ab, qb, lb, ub, scal, dyn, xb, yb,
                                     zb, factor0=factor0, with_factor=True,
                                     tf32=tf32)
 
 
 class BatchedSolver:
-    """Solve a batch of QPs sharing P and A on one device.
+    """Solve a batch of same-shape QPs on one device.
 
     Example::
 
         solver = BatchedSolver(Settings(eps_abs=1e-3, eps_rel=1e-3),
-                               device="cuda")
+                               kkt_mode="shared")
         out = solver.solve(P, q, A, l, u)   # P (n,n), A (m,n); q, l, u batched
         out.x          # (B, n) solutions
         out.status     # (B,) status codes (osqp_tpu_torch.constants)
 
+    ``kkt_mode``: "shared" for a batch that shares one P and A; "inverse"
+    (default), "chol" or "fused" for per-lane P (B,n,n) and A (B,m,n).
+
     Inputs may be numpy arrays or tensors; they are moved to ``device`` in
-    the settings' dtype. ``device="cuda"`` runs every solve leg in the
-    Hopper leg kernel and raises when no GPU is present.
+    the settings' dtype. ``device`` defaults to "cuda", where the solve
+    runs the Hopper kernels, and raises when no GPU is present; pass
+    ``device="cpu"`` to run the plain PyTorch versions on the CPU.
     """
 
     def __init__(self, settings: Optional[Settings] = None,
-                 kkt_mode: str = "shared", device="cpu", mesh=None):
-        if kkt_mode != "shared":
-            raise NotImplementedError(
-                f"kkt_mode={kkt_mode!r} is not ported yet; the per-lane "
-                f"engines are ROADMAP queue 1 item 6")
+                 kkt_mode: str = "inverse", device=None, mesh=None):
+        if kkt_mode != "shared" and kkt_mode not in KKT_MODES:
+            raise ValueError(f"kkt_mode {kkt_mode!r} not in "
+                             f"{('shared',) + KKT_MODES}")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh (batch sharding across devices) is not ported yet "
                 "(ROADMAP queue 1 item 11)")
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but CUDA is "
-                               f"not available")
+            raise RuntimeError(f"device {str(self.device)!r} requested but "
+                               f"CUDA is not available (pass device='cpu' "
+                               f"to run on the CPU)")
         self.settings = settings or Settings()
         self.kkt_mode = kkt_mode
 
@@ -123,9 +136,6 @@ class BatchedSolver:
         if s.time_limit and s.time_limit > 0:
             raise NotImplementedError(
                 "time_limit is not ported yet (ROADMAP queue 1 item 3)")
-        if s.mixed_precision:
-            raise NotImplementedError(
-                "mixed_precision is not ported yet (ROADMAP queue 1 item 13)")
 
     def _dtype(self):
         return torch_dtype(self.settings.resolve_dtype())
@@ -160,18 +170,15 @@ class BatchedSolver:
 
     def solve(self, Pm, q, A, l, u, x0=None, y0=None,
               rho0=None) -> SolveOutput:
-        """Solve the batch: ``Pm`` (n,n) and ``A`` (m,n) shared, q (B,n),
-        l/u (B,m), optional unscaled warm starts x0 (B,n), y0 (B,m).
-        ``rho0`` overrides ``settings.rho`` for this solve (pass a previous
-        solve's ``out.rho_estimate`` for warm-re-solve economics)."""
+        """Solve the batch: q (B,n), l/u (B,m), ``Pm``/``A`` (n,n)/(m,n)
+        shared or, in the per-lane modes, (B,n,n)/(B,m,n) stacked; optional
+        unscaled warm starts x0 (B,n), y0 (B,m). ``rho0`` overrides
+        ``settings.rho`` for this solve (pass a previous solve's
+        ``out.rho_estimate`` for warm-re-solve economics)."""
         self._check_supported()
         s = self.settings
         dtype = s.resolve_dtype()
         Pm, q, A, l, u = (self._t(v) for v in (Pm, q, A, l, u))
-        if Pm.ndim != 2 or A.ndim != 2:
-            raise ValueError(
-                "kkt_mode='shared' requires one shared P (n,n) and "
-                "A (m,n) for the whole batch")
         B, n = q.shape
         m = l.shape[-1]
         x0, y0 = _sanitize_starts(*self._starts(x0, y0, B, n, m))
@@ -179,9 +186,22 @@ class BatchedSolver:
         if rho0 is not None:
             dyn = dyn._replace(rho_bar=torch.tensor(
                 _rho_value(rho0), dtype=self._dtype()))
+        if self.kkt_mode != "shared":
+            # per-lane engine: a shared P / A is broadcast to the batch
+            data = QPData(P=Pm.expand(B, n, n), q=q, A=A.expand(B, m, n),
+                          l=l, u=u)
+            with precision_scope():
+                out = _per_lane_solve(data, dyn, s.scaling, x0, y0,
+                                      self.kkt_mode, tf32=s.tf32())
+            return _nanfill(out)
+        if Pm.ndim != 2 or A.ndim != 2:
+            raise ValueError(
+                "kkt_mode='shared' requires one shared P (n,n) and "
+                "A (m,n) for the whole batch")
         with precision_scope():
             out = solve_shared(Pm, A, q, l, u, dyn, s.scaling, x0, y0,
-                               adaptive=bool(s.adaptive_rho), tf32=s.tf32())
+                               adaptive=bool(s.adaptive_rho),
+                               lowp=s.mixed_precision, tf32=s.tf32())
         return _nanfill(out)
 
     # ------------------------------------------------------------------
@@ -194,7 +214,10 @@ class BatchedSolver:
         :meth:`solve_prepared` calls.
 
         ``q`` (optional, (B, n) or (n,)): representative cost(s) for the
-        cost-normalization term of the scaling. Returns ``self``."""
+        cost-normalization term of the scaling. Requires
+        ``kkt_mode='shared'``. Returns ``self``."""
+        if self.kkt_mode != "shared":
+            raise ValueError("prepare() requires kkt_mode='shared'")
         s = self.settings
         Pm, A = self._t(Pm), self._t(A)
         if Pm.ndim != 2 or A.ndim != 2:
@@ -243,7 +266,8 @@ class BatchedSolver:
         with precision_scope():
             out, fac = _prepared_solve(
                 p["Pb"], p["Ab"], p["scal"], q, l, u, x0, y0, dyn, factor,
-                adaptive=bool(s.adaptive_rho), tf32=s.tf32())
+                adaptive=bool(s.adaptive_rho), lowp=s.mixed_precision,
+                tf32=s.tf32())
         p["factor"] = fac
         return _nanfill(out)
 
@@ -277,7 +301,8 @@ class BatchedSolver:
             for k in range(int(n_steps)):
                 out, factor = _prepared_solve(
                     p["Pb"], p["Ab"], p["scal"], q, l, u, x, y, dyn, factor,
-                    adaptive=bool(s.adaptive_rho), tf32=s.tf32())
+                    adaptive=bool(s.adaptive_rho), lowp=s.mixed_precision,
+                    tf32=s.tf32())
                 q, l, u = (self._t(v) for v in step_fn(out.x, (q, l, u), k))
                 steps["status"].append(out.status)
                 steps["iter"].append(out.iter)
@@ -290,3 +315,48 @@ class BatchedSolver:
         outs["x"] = x
         outs["y"] = y
         return outs
+
+
+def solve_batch(Pm, q, A, l, u, settings: Optional[Settings] = None,
+                mesh=None, x0=None, y0=None, kkt_mode: str = "inverse",
+                device=None) -> SolveOutput:
+    """One-shot functional batched solve (convenience wrapper around
+    :class:`BatchedSolver`)."""
+    return BatchedSolver(settings, kkt_mode=kkt_mode, device=device,
+                         mesh=mesh).solve(Pm, q, A, l, u, x0=x0, y0=y0)
+
+
+def pad_problems(problems, dtype=float):
+    """Pad a list of differently-sized QPs into one stacked batch.
+
+    ``problems`` is a sequence of (P, q, A, l, u) tuples with varying (n, m).
+    Variables are padded with a unit-diagonal quadratic block (so the padded
+    coordinates decouple and solve to 0); constraints are padded with loose
+    rows. Returns numpy ``(P, q, A, l, u, sizes)`` stacked to the max dims,
+    with ``sizes`` the original (n_i, m_i) for unpadding solutions::
+
+        Pb, qb, Ab, lb, ub, sizes = pad_problems(problems)
+        out = BatchedSolver(...).solve(Pb, qb, Ab, lb, ub)
+        x_i = out.x[i, :sizes[i][0]]
+    """
+    n_max = max(np.asarray(p[0]).shape[0] for p in problems)
+    m_max = max(np.asarray(p[2]).shape[0] for p in problems)
+    B = len(problems)
+    Pb = np.zeros((B, n_max, n_max), dtype)
+    qb = np.zeros((B, n_max), dtype)
+    Ab = np.zeros((B, m_max, n_max), dtype)
+    lb = np.full((B, m_max), -np.inf, dtype)
+    ub = np.full((B, m_max), np.inf, dtype)
+    sizes = []
+    for i, (P, q, A, l, u) in enumerate(problems):
+        P, A = np.asarray(P), np.asarray(A)
+        n_i, m_i = P.shape[0], A.shape[0]
+        Pb[i, :n_i, :n_i] = P
+        # decouple padded coordinates (unit diagonal => x_pad = 0)
+        Pb[i, np.arange(n_i, n_max), np.arange(n_i, n_max)] = 1.0
+        qb[i, :n_i] = np.asarray(q)
+        Ab[i, :m_i, :n_i] = A
+        lb[i, :m_i] = np.asarray(l)
+        ub[i, :m_i] = np.asarray(u)
+        sizes.append((n_i, m_i))
+    return Pb, qb, Ab, lb, ub, sizes

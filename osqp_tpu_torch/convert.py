@@ -14,7 +14,7 @@ import torch
 
 from .core import torch_dtype
 from .shared_core import FactorCache, SharedScaling
-from .types import DynParams, SolveOutput
+from .types import DynParams, QPData, ScalingData, SolveOutput
 
 _DYN_FLOATS = ("rho_bar", "sigma", "alpha", "eps_abs", "eps_rel",
                "eps_prim_inf", "eps_dual_inf", "adaptive_rho_tolerance",
@@ -32,6 +32,20 @@ def scaling_to_torch(scal, device, dtype) -> SharedScaling:
     """``osqp_tpu.shared_core.SharedScaling`` → the port's."""
     return SharedScaling(*(_tensor(getattr(scal, f), device, dtype)
                            for f in SharedScaling._fields))
+
+
+def qpdata_to_torch(data, device, dtype) -> QPData:
+    """``osqp_tpu.types.QPData`` (one problem, or stacked per lane with a
+    leading batch axis) → the port's."""
+    return QPData(*(_tensor(getattr(data, f), device, dtype)
+                    for f in QPData._fields))
+
+
+def scaling_data_to_torch(scal, device, dtype) -> ScalingData:
+    """``osqp_tpu.types.ScalingData`` (one problem, or stacked as the
+    per-lane engine's ``jax.vmap(scale_problem)`` gives it) → the port's."""
+    return ScalingData(*(_tensor(getattr(scal, f), device, dtype)
+                         for f in ScalingData._fields))
 
 
 def factor_to_torch(factor, device, dtype) -> FactorCache:

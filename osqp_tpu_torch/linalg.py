@@ -40,11 +40,13 @@ def with_precision(fn):
 
 
 def chol_factor(R):
-    """Lower-triangular Cholesky factor; NaN-filled if R is not PD.
+    """Lower-triangular Cholesky factor of R (..., n, n); each matrix that
+    is not PD gets a NaN-filled factor, the others are unaffected.
 
     ``lax.linalg.cholesky`` NaN-fills a matrix that is not positive
     definite and the engine reports that as Non_convex; ``cholesky_ex``
     gives the same without raising and without a host sync."""
     Rs = 0.5 * (R + R.mT)
     L, info = torch.linalg.cholesky_ex(Rs)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.where(info[..., None, None] == 0, L,
+                       torch.full_like(L, float("nan")))

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``osqp_tpu_torch/csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, which ``ctypes`` loads. The library
-goes to ``osqp_tpu_torch/.build/`` (listed in ``.gitignore``) under a name
-keyed by a hash of the sources, so an edited source is rebuilt and an
-unchanged one is built once per checkout, at its first CUDA use.
+``nvcc`` compiles each ``osqp_tpu_torch/csrc/*.cu`` for ``sm_90a`` into an
+object, all sources at once in parallel processes, and links them into one
+shared library with a plain C interface, which ``ctypes`` loads. The
+library goes to ``osqp_tpu_torch/.build/`` (listed in ``.gitignore``) under
+a name keyed by a hash of the sources, so an edited source is rebuilt and
+an unchanged one is built once per checkout, at its first CUDA use.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "solve_kernel.cu",)
+_SOURCES = tuple(_PKG / "csrc" / f for f in
+                 ("solve_kernel.cu", "shared_iter.cu", "fused_iter.cu"))
 BUILD_DIR = _PKG / ".build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -51,22 +53,34 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, *map(str, _SOURCES)]
+    nvcc = _nvcc()
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        flags.append("-Xptxas=-v")
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _SOURCES]
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        failed = []
+        for src, proc in zip(_SOURCES, procs):
+            text, _ = proc.communicate()
+            log.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(log))
+        lib = os.path.join(tmp, out.name)
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs],
+                             capture_output=True, text=True)
+        log.append(res.stdout + res.stderr)
         if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, res.stdout + res.stderr
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               + "".join(log))
+        os.replace(lib, out)  # atomic: concurrent builds race harmlessly
+    return out, "".join(log)
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,6 +93,20 @@ def load_library() -> ctypes.CDLL:
     f.restype = i
     f.argtypes = ([i, i] + [vp] * 26 + [i] * 5 + [d, d, i, i]
                   + [d] * 6 + [i, vp])
+    f = lib.osqp_admm_iterate_shared
+    f.restype = i
+    f.argtypes = [i] + [vp] * 16 + [i] * 6 + [d, d, vp]
+    f = lib.osqp_admm_iterate
+    f.restype = i
+    f.argtypes = [i, i] + [vp] * 15 + [i] * 4 + [d, d, vp]
     lib.osqp_cuda_error_string.restype = ctypes.c_char_p
     lib.osqp_cuda_error_string.argtypes = [i]
     return lib
+
+
+def check_launch(lib, err: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error (0 is success)."""
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: CUDA error {err} "
+            f"({lib.osqp_cuda_error_string(err).decode()})")

@@ -29,18 +29,12 @@ import torch
 
 from .. import constants as C
 from ..linalg import with_precision
+from . import _hopper
+from ._hopper import SMEM_LIMIT
 from .shared_iter import dot3, split_bf16
 
 _DIV_GUARD = 1e-10
 
-#: Shared memory a Hopper block may use (H100: 227 KB of the SM's 256 KB).
-SMEM_LIMIT = 232448
-#: Shared memory of one SM (228 KB), of which each resident block also
-#: takes 1 KB for itself.
-SM_SMEM = 233472
-_BLOCK_RESERVED = 1024
-#: SMs on an H100: the group rule wants at least this many blocks.
-NUM_SMS = 132
 #: Threads per block and per-lane reduction slots of the CUDA kernel
 #: (``NT`` and ``NQ`` in csrc/solve_kernel.cu).
 _NT = 256
@@ -85,19 +79,9 @@ def pick_group(B, n, m, itemsize, tf32=False):
     more than the operator reuse a larger G buys: at B=4096, n=128, m=256
     on an H100 this picks G=8 in float32 and tf32 and G=4 in float64, the
     fastest of the sizes measured (PERF.md)."""
-    fits = [G for G in GROUPS
-            if smem_bytes(G, n, m, itemsize, tf32) <= SMEM_LIMIT]
-    if not fits:
-        raise ValueError(
-            f"one lane of the leg kernel at n={n}, m={m} needs "
-            f"{smem_bytes(1, n, m, itemsize, tf32)} bytes of shared memory, "
-            f"more than the {SMEM_LIMIT} a block may use")
-    for G in fits:
-        two_per_sm = (smem_bytes(G, n, m, itemsize, tf32) + _BLOCK_RESERVED
-                      <= SM_SMEM // 2)
-        if two_per_sm and -(-B // G) >= NUM_SMS:
-            return G
-    return fits[-1]
+    return _hopper.pick_group(
+        B, GROUPS, lambda G: smem_bytes(G, n, m, itemsize, tf32),
+        f"leg kernel at n={n}, m={m}")
 
 
 def _rowmax(M):
@@ -264,7 +248,7 @@ def _cuda_leg(Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv, Dinv, D_r, E_r,
               tf32: bool = False):
     """Launch the Hopper leg kernel on the current stream. Same inputs and
     outputs as :func:`admm_solve_shared_reference`."""
-    from ._build import load_library
+    from ._build import check_launch, load_library
 
     B, n = x0.shape
     m = y0.shape[1]
@@ -311,10 +295,7 @@ def _cuda_leg(Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv, Dinv, D_r, E_r,
         sc.sigma, sc.alpha, sc.max_iter, sc.check_every, sc.eps_abs,
         sc.eps_rel, sc.cinv, sc.eps_pinf, sc.eps_dinf, sc.cinv_raw, sc.it0,
         ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"leg kernel launch failed: CUDA error {err} "
-            f"({lib.osqp_cuda_error_string(err).decode()})")
+    check_launch(lib, err, "leg kernel")
     admm_solve_shared.launches += 1
     return tuple(outs)
 

@@ -3,7 +3,9 @@
 All problems of the batch share one P and A; only q, l, u and the starts
 vary. So one Ruiz equilibration and one reduced-KKT inverse serve the whole
 batch, a single shared rho is adapted from aggregate residuals, and each
-solve leg runs in the leg kernel (:mod:`osqp_tpu_torch.ops.solve_kernel`).
+solve leg runs in the leg kernel (:mod:`osqp_tpu_torch.ops.solve_kernel`);
+in mixed precision each chunk runs in the iteration kernel
+(:mod:`osqp_tpu_torch.ops.shared_iter`) and is checked here.
 
 The JAX package runs the leg loop as ``lax.while_loop`` and its branches as
 ``lax.cond``; here the loop is a Python loop and the branches are Python
@@ -19,15 +21,22 @@ from typing import NamedTuple
 import torch
 
 from . import constants as C
+from .core import inf_norm
 from .linalg import chol_factor, with_precision
+from .ops import shared_iter
 from .ops.solve_kernel import admm_solve_shared, pick_group
 from .scaling import _limit_scaling
 from .types import DynParams, SolveOutput
 
 _DIV_GUARD = 1e-10
 
-#: tf32 stall detector: a leg that improves the global closeness ratio by
-#: less than this fraction switches the remaining legs to full float32.
+#: Mixed-precision phase switch: drop from bf16 to full-precision chunks
+#: once the fastest running lane is within this factor of its termination
+#: tolerance (bf16 iteration noise would otherwise block convergence).
+_LOWP_SWITCH_RATIO = 10.0
+#: Stall detector of the mixed-precision and tf32 modes: a chunk or leg that
+#: improves the global closeness ratio by less than this fraction switches
+#: the rest of the solve to full precision.
 _LOWP_STALL_FRAC = 0.95
 
 
@@ -73,12 +82,6 @@ def shared_ruiz(P, A, q_absmax, n_iters):
 # Shared-A batched residuals / termination / certificates
 # ---------------------------------------------------------------------------
 
-def _row_norm(M):  # (B, k) -> (B,) inf-norm per row
-    if M.shape[1] == 0:
-        return torch.zeros((M.shape[0],), dtype=M.dtype, device=M.device)
-    return torch.amax(torch.abs(M), dim=1)
-
-
 class BRes(NamedTuple):
     pri_res: torch.Tensor
     dua_res: torch.Tensor
@@ -99,22 +102,22 @@ def shared_residuals(P, A, qb, scal, dyn, x, y, z) -> BRes:
     Ax = x @ A.T
     Px = x @ P            # P symmetric
     Aty = y @ A
-    pri_res = _row_norm(Einv * (Ax - z))
-    pri_norm = torch.maximum(_row_norm(Einv * Ax), _row_norm(Einv * z))
-    dua_res = cinv * _row_norm(Dinv * (Px + qb + Aty))
+    pri_res = inf_norm(Einv * (Ax - z))
+    pri_norm = torch.maximum(inf_norm(Einv * Ax), inf_norm(Einv * z))
+    dua_res = cinv * inf_norm(Dinv * (Px + qb + Aty))
     dua_norm = cinv * torch.maximum(
-        torch.maximum(_row_norm(Dinv * Px), _row_norm(Dinv * Aty)),
-        _row_norm(Dinv * qb))
+        torch.maximum(inf_norm(Dinv * Px), inf_norm(Dinv * Aty)),
+        inf_norm(Dinv * qb))
     return BRes(pri_res, dua_res, pri_norm, dua_norm)
 
 
 def shared_primal_inf(A, lb, ub, scal, dy_bar, eps):
     dy = scal.cinv * scal.E * dy_bar
-    nrm = _row_norm(dy)
+    nrm = inf_norm(dy)
     s = 1.0 / torch.clamp(nrm, min=_DIV_GUARD)[:, None]
     dyn_ = dy * s
     At_dy = scal.Dinv * ((scal.Einv * dyn_) @ A)
-    cond_mat = _row_norm(At_dy) <= eps
+    cond_mat = inf_norm(At_dy) <= eps
     u = scal.Einv * ub
     l = scal.Einv * lb
     u_inf = u >= C.INFTY_THRESH
@@ -132,12 +135,12 @@ def shared_primal_inf(A, lb, ub, scal, dy_bar, eps):
 
 def shared_dual_inf(P, A, qb, lb, ub, scal, dx_bar, eps):
     dx = scal.D * dx_bar
-    nrm = _row_norm(dx)
+    nrm = inf_norm(dx)
     s = 1.0 / torch.clamp(nrm, min=_DIV_GUARD)[:, None]
     dxn = dx * s
     dxn_bar = dx_bar * s
     P_dx = scal.cinv * scal.Dinv * (dxn_bar @ P)
-    cond_P = _row_norm(P_dx) <= eps
+    cond_P = inf_norm(P_dx) <= eps
     q_u = scal.cinv * scal.Dinv * qb
     cond_q = torch.sum(q_u * dxn, dim=1) < -eps
     A_dx = scal.Einv * (dxn_bar @ A.T)
@@ -334,14 +337,22 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     until a leg stops improving the closeness ratio of the fastest running
     lane (a tf32 noise plateau); the remaining legs then run full float32.
 
-    ``lowp`` (``Settings.mixed_precision``) is not ported yet."""
-    if lowp:
-        raise NotImplementedError(
-            "mixed_precision is not ported yet (ROADMAP queue 1 item 13)")
+    ``lowp`` (``Settings.mixed_precision``): the solve runs in chunks of
+    check_termination iterations in the iteration kernel
+    (:mod:`osqp_tpu_torch.ops.shared_iter`), with bf16 operands until the
+    fastest running lane is within ``_LOWP_SWITCH_RATIO`` of its tolerance
+    or a chunk stalls, then in the working precision. Every chunk is
+    checked in full precision from the actual iterates; before the switch
+    only Solved and Non_convex may be declared (δx/δy of a bf16 chunk are
+    too noisy for certificates). ``lowp`` supersedes ``tf32``."""
+    tf32 = tf32 and not lowp
     dtype, dev = P.dtype, P.device
     B, n = x0.shape
     m = y0.shape[1]
-    G = group or pick_group(B, n, m, x0.element_size(), tf32)
+    if lowp:
+        G = group or shared_iter.pick_group(B, n, m, x0.element_size())
+    else:
+        G = group or pick_group(B, n, m, x0.element_size(), tf32)
     compact = B >= 2 * G  # pointless below two groups
     inf = float("inf")
 
@@ -365,7 +376,7 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     order = torch.arange(B, device=dev)
     nlive = B                      # packed prefix of running lanes
     packed = False
-    fine = not tf32                # full-precision phase reached
+    fine = not (tf32 or lowp)      # full-precision phase reached
     last_ratio = torch.tensor(inf, dtype=dtype, device=dev)
     rho_dir = dyn.rho_dir0
     rho_gap = dyn.rho_gap0 if dyn.rho_gap0 > 0 else rho_int
@@ -373,33 +384,60 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     n_running = B
 
     while n_running > 0 and it < dyn.max_iter:
-        leg_tf32 = not fine
+        low = not fine             # this leg or chunk in reduced precision
         live = status == C.RUNNING
         lx = live[:, None]
         live_groups = -(-nlive // G) if compact else None
-        K = min(rho_int - it % rho_int, dyn.max_iter - it)
-        (xk, yk, zk, xpk, ypk, st_k, it_k, pri_k, dua_k, prn_k,
-         dun_k) = admm_solve_shared(
-            Rinv, P, A, rho_vec, rho_inv, Einv_eff, Dinv_eff, cinv_eff,
-            qc, lc, uc, x, y, z, dyn.sigma, dyn.alpha, K,
-            dyn.check_termination, dyn.eps_abs, dyn.eps_rel, scal=scal,
-            eps_pinf=dyn.eps_prim_inf, eps_dinf=dyn.eps_dual_inf,
-            status0=status, it0=it, live_groups=live_groups, group=G,
-            tf32=leg_tf32)
-        x = torch.where(lx, xk, x)
-        y = torch.where(lx, yk, y)
-        z = torch.where(lx, zk, z)
-        x_prev = torch.where(lx, xpk, x_prev)
-        y_prev = torch.where(lx, ypk, y_prev)
-        it += K
-        status = torch.where(live, st_k, status)
-        iters = torch.where(live & (status != C.RUNNING), it_k, iters)
-        if dyn.check_termination > 0:
-            res = BRes(pri_k, dua_k, prn_k, dun_k)
+        if lowp:
+            K = min(chunk, dyn.max_iter - it)
+            xk, yk, zk, _, _ = shared_iter.admm_iterate_shared(
+                Rinv, A, rho_vec, rho_inv, qc, lc, uc, x, y, z, dyn.sigma,
+                dyn.alpha, K, group=G, live_groups=live_groups, lowp=low)
+            # chunk-window certificate deltas: snapshot the start of every
+            # 4th chunk
+            if it % (4 * chunk) == 0:
+                x_prev = torch.where(lx, x, x_prev)
+                y_prev = torch.where(lx, y, y_prev)
+            x = torch.where(lx, xk, x)
+            y = torch.where(lx, yk, y)
+            z = torch.where(lx, zk, z)
+            it += K
+            status_new, res = shared_check(
+                P, A, qc, lc, uc, scal, dyn, x, y, z, x - x_prev,
+                y - y_prev, torch.ones((), dtype=dtype), accurate=True)
+            if dyn.check_termination > 0:
+                if low:
+                    # bf16 phase: no infeasibility certificates yet
+                    benign = ((status_new == C.SOLVED)
+                              | (status_new == C.RUNNING)
+                              | (status_new == C.NON_CONVEX))
+                    status_new = torch.where(benign, status_new, status)
+                status = torch.where(live, status_new, status)
+            iters = torch.where(live & (status != C.RUNNING), it, iters)
         else:
-            # the kernel never computed residuals; the rho estimate and
-            # the stall detector still need them
-            res = shared_residuals(P, A, qc, scal, dyn, x, y, z)
+            K = min(rho_int - it % rho_int, dyn.max_iter - it)
+            (xk, yk, zk, xpk, ypk, st_k, it_k, pri_k, dua_k, prn_k,
+             dun_k) = admm_solve_shared(
+                Rinv, P, A, rho_vec, rho_inv, Einv_eff, Dinv_eff, cinv_eff,
+                qc, lc, uc, x, y, z, dyn.sigma, dyn.alpha, K,
+                dyn.check_termination, dyn.eps_abs, dyn.eps_rel, scal=scal,
+                eps_pinf=dyn.eps_prim_inf, eps_dinf=dyn.eps_dual_inf,
+                status0=status, it0=it, live_groups=live_groups, group=G,
+                tf32=low)
+            x = torch.where(lx, xk, x)
+            y = torch.where(lx, yk, y)
+            z = torch.where(lx, zk, z)
+            x_prev = torch.where(lx, xpk, x_prev)
+            y_prev = torch.where(lx, ypk, y_prev)
+            it += K
+            status = torch.where(live, st_k, status)
+            iters = torch.where(live & (status != C.RUNNING), it_k, iters)
+            if dyn.check_termination > 0:
+                res = BRes(pri_k, dua_k, prn_k, dun_k)
+            else:
+                # the kernel never computed residuals; the rho estimate and
+                # the stall detector still need them
+                res = shared_residuals(P, A, qc, scal, dyn, x, y, z)
         still = status == C.RUNNING
 
         if dyn.adaptive_rho != 0 and it % rho_int == 0:
@@ -438,8 +476,10 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
                 rho_dir = dir_new
             rho_estimate = est
 
-        if leg_tf32:
-            # stall detector: closeness ratio of the fastest running lane
+        if low:
+            # precision switch: closeness ratio of the fastest running lane;
+            # a stall switches either mode, nearness the bf16 mode only
+            # (tf32 legs can converge to eps, bf16 chunks cannot)
             den_p = torch.clamp(dyn.eps_abs + dyn.eps_rel * res.pri_norm,
                                 min=_DIV_GUARD)
             den_d = torch.clamp(dyn.eps_abs + dyn.eps_rel * res.dua_norm,
@@ -447,7 +487,8 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
             ratio = torch.maximum(res.pri_res / den_p, res.dua_res / den_d)
             ratio = torch.where(still, ratio, inf)
             rmin = torch.amin(ratio)
-            fine = bool(rmin > _LOWP_STALL_FRAC * last_ratio)
+            fine = bool((rmin > _LOWP_STALL_FRAC * last_ratio)
+                        | (lowp & (rmin < _LOWP_SWITCH_RATIO)))
             last_ratio = torch.minimum(rmin, last_ratio)
 
         pri_res = torch.where(live, res.pri_res, pri_res)
@@ -546,7 +587,8 @@ def solve_shared(P, A, q, l, u, dyn: DynParams, scaling_iters, x0, y0,
     """One-shot shared-structure solve: scale the shared data once, then
     solve the batch. P (n,n), A (m,n) shared; q (B,n), l/u (B,m) per lane;
     x0/y0 unscaled. ``adaptive=False`` selects the fixed-rho single-leg
-    path."""
+    path; ``lowp`` (mixed precision) applies to the adaptive path only, as
+    in the JAX package."""
     l = torch.clamp(l, -C.OSQP_INFTY, C.OSQP_INFTY)
     u = torch.clamp(u, -C.OSQP_INFTY, C.OSQP_INFTY)
     q_absmax = torch.amax(torch.abs(q), dim=0)

@@ -17,14 +17,26 @@ import numpy as np
 from .constants import STATUS_MAP
 
 
+class QPData(NamedTuple):
+    """Dense problem data: min 0.5 x'Px + q'x  s.t.  l <= Ax <= u, with P
+    stored as the full symmetric matrix. The per-lane engine stacks it:
+    every field then has a leading batch axis."""
+    P: Any  # (..., n, n)
+    q: Any  # (..., n)
+    A: Any  # (..., m, n)
+    l: Any  # (..., m)
+    u: Any  # (..., m)
+
+
 class ScalingData(NamedTuple):
-    """Ruiz equilibration result: P̄=c·D P D, q̄=c·D q, Ā=E A D, l̄=E l, ū=E u."""
-    D: Any      # (n,)
-    E: Any      # (m,)
-    c: Any      # 0-d
-    Dinv: Any   # (n,)
-    Einv: Any   # (m,)
-    cinv: Any   # 0-d
+    """Ruiz equilibration result: P̄=c·D P D, q̄=c·D q, Ā=E A D, l̄=E l, ū=E u.
+    Stacked for the per-lane engine (leading batch axis on every field)."""
+    D: Any      # (..., n)
+    E: Any      # (..., m)
+    c: Any      # (...)
+    Dinv: Any   # (..., n)
+    Einv: Any   # (..., m)
+    cinv: Any   # (...)
 
 
 class DynParams(NamedTuple):
@@ -76,9 +88,9 @@ class SolveOutput(NamedTuple):
     ybar: Any
     zbar: Any
     status_polish: Any = 0
-    rho_dir: Any = 0  # rho back-off resume state (Python ints)
-    rho_gap: Any = 0
-    next_rho: Any = 0
+    rho_dir: Any = 0  # rho back-off resume state: Python ints from the
+    rho_gap: Any = 0  # shared engine, (B,) int32 tensors from the per-lane
+    next_rho: Any = 0  # engine
 
 
 @dataclasses.dataclass

@@ -19,6 +19,10 @@ from osqp_tpu.settings import Settings as JaxSettings
 from osqp_tpu_torch.batch import BatchedSolver, _nanfill, _sanitize_starts
 from osqp_tpu_torch.settings import Settings
 
+#: the shared-structure engine on the CPU (the solver's defaults are the
+#: per-lane "inverse" engine on the GPU)
+CPU_SHARED = dict(kkt_mode="shared", device="cpu")
+
 
 def make_batch(B, n, m, seed=0):
     rng = np.random.RandomState(seed)
@@ -72,7 +76,7 @@ def test_shared_structure_engine():
                       kkt_mode="inverse").solve(P, q, A, l, u)
     o_jax = JaxSolver(settings=JaxSettings(**kw),
                       kkt_mode="shared").solve(P, q, A, l, u)
-    o_sh = BatchedSolver(Settings(**kw)).solve(P, q, A, l, u)
+    o_sh = BatchedSolver(Settings(**kw), **CPU_SHARED).solve(P, q, A, l, u)
     np.testing.assert_array_equal(_np(o_sh.status), _np(o_inv.status))
     np.testing.assert_array_equal(_np(o_sh.status), _np(o_jax.status))
     np.testing.assert_allclose(_np(o_sh.x), _np(o_inv.x), atol=1e-3)
@@ -82,7 +86,7 @@ def test_shared_structure_engine():
 def test_shared_requires_2d():
     B, n, m = 2, 4, 6
     P, q, A, l, u = make_batch(B, n, m)
-    solver = BatchedSolver(Settings(verbose=False))
+    solver = BatchedSolver(Settings(verbose=False), **CPU_SHARED)
     with pytest.raises(ValueError):
         solver.solve(np.broadcast_to(P, (B, n, n)), q,
                      np.broadcast_to(A, (B, m, n)), l, u)
@@ -92,10 +96,10 @@ def test_fixed_rho_full_kernel_matches_epoch():
     B, n, m = 4, 8, 16
     P, q, A, l, u = make_batch(B, n, m, seed=8)
     kw = dict(verbose=False, eps_abs=1e-5, eps_rel=1e-5, dtype=np.float32)
-    out_fixed = BatchedSolver(Settings(adaptive_rho=False, **kw)).solve(
-        P, q, A, l, u)
-    out_ref = BatchedSolver(Settings(adaptive_rho=True, **kw)).solve(
-        P, q, A, l, u)
+    out_fixed = BatchedSolver(Settings(adaptive_rho=False, **kw),
+                              **CPU_SHARED).solve(P, q, A, l, u)
+    out_ref = BatchedSolver(Settings(adaptive_rho=True, **kw),
+                            **CPU_SHARED).solve(P, q, A, l, u)
     assert _np(out_ref.rho_updates).max() == 0  # same rho trajectory
     _same_run(out_fixed, out_ref, atol=1e-5)
     jax_fixed = JaxSolver(settings=JaxSettings(adaptive_rho=False, **kw),
@@ -112,9 +116,9 @@ def test_tf32_mode_matches_f32_statuses(adaptive):
     P, q, A, l, u = make_batch(B, n, m, seed=5)
     kw = dict(verbose=False, eps_abs=1e-5, eps_rel=1e-5, dtype=np.float32,
               adaptive_rho=adaptive)
-    out_f = BatchedSolver(Settings(**kw)).solve(P, q, A, l, u)
-    out_t = BatchedSolver(
-        Settings(matmul_precision="tensorfloat32", **kw)).solve(P, q, A, l, u)
+    out_f = BatchedSolver(Settings(**kw), **CPU_SHARED).solve(P, q, A, l, u)
+    out_t = BatchedSolver(Settings(matmul_precision="tensorfloat32", **kw),
+                          **CPU_SHARED).solve(P, q, A, l, u)
     ref_t = JaxSolver(settings=JaxSettings(matmul_precision="tensorfloat32",
                                            **kw),
                       kkt_mode="shared").solve(P, q, A, l, u)
@@ -153,8 +157,9 @@ def test_tf32_family_status_parity(family):
     ub = np.broadcast_to(u, (B,) + u.shape).copy()
     kw = dict(verbose=False, eps_abs=1e-3, eps_rel=1e-3, dtype=np.float32,
               max_iter=20000)
-    sts = {mp: _np(BatchedSolver(Settings(matmul_precision=mp, **kw)).solve(
-        P, qb, A, lb, ub).status) for mp in ("float32", "tensorfloat32")}
+    sts = {mp: _np(BatchedSolver(Settings(matmul_precision=mp, **kw),
+                                 **CPU_SHARED).solve(P, qb, A, lb, ub).status)
+           for mp in ("float32", "tensorfloat32")}
     ref = JaxSolver(settings=JaxSettings(**kw), kkt_mode="shared").solve(
         P, qb, A, lb, ub)
     np.testing.assert_array_equal(sts["float32"], sts["tensorfloat32"])
@@ -167,9 +172,9 @@ def test_tf32_family_status_parity(family):
 
 def test_prepared_matches_one_shot():
     P, q, A, l, u = _batch()
-    ref = BatchedSolver(Settings(**_kw())).solve(P, q, A, l, u)
-    out = BatchedSolver(Settings(**_kw())).prepare(P, A, q=q).solve_prepared(
-        q, l, u)
+    ref = BatchedSolver(Settings(**_kw()), **CPU_SHARED).solve(P, q, A, l, u)
+    out = BatchedSolver(Settings(**_kw()), **CPU_SHARED).prepare(
+        P, A, q=q).solve_prepared(q, l, u)
     np.testing.assert_array_equal(_np(out.status), _np(ref.status))
     np.testing.assert_allclose(_np(out.x), _np(ref.x), rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(_np(out.obj_val), _np(ref.obj_val),
@@ -181,7 +186,7 @@ def test_prepared_matches_one_shot():
 
 def test_prepared_warm_cycle_carries_factor():
     P, q, A, l, u = _batch(seed=3)
-    solver = BatchedSolver(Settings(**_kw()))
+    solver = BatchedSolver(Settings(**_kw()), **CPU_SHARED)
     solver.prepare(P, A, q=q)
     cold = solver.solve_prepared(q, l, u)
     assert np.all(_np(cold.status) == C.SOLVED)
@@ -194,7 +199,7 @@ def test_prepared_warm_cycle_carries_factor():
     assert int(_np(warm.rho_updates)[0]) == 0
     assert _np(warm.iter).mean() < 0.7 * _np(cold.iter).mean()
 
-    ref = BatchedSolver(Settings(**_kw())).solve(P, q2, A, l, u)
+    ref = BatchedSolver(Settings(**_kw()), **CPU_SHARED).solve(P, q2, A, l, u)
     np.testing.assert_allclose(_np(warm.x), _np(ref.x), rtol=1e-3, atol=1e-4)
 
     jax_solver = JaxSolver(settings=JaxSettings(**_kw()), kkt_mode="shared")
@@ -207,7 +212,7 @@ def test_prepared_warm_cycle_carries_factor():
 
 def test_prepared_bounds_reclassification_refactors():
     P, q, A, l, u = _batch(B=8, seed=5)
-    solver = BatchedSolver(Settings(**_kw()))
+    solver = BatchedSolver(Settings(**_kw()), **CPU_SHARED)
     solver.prepare(P, A, q=q)
     out1 = solver.solve_prepared(q, l, u)
     assert np.all(_np(out1.status) == C.SOLVED)
@@ -219,7 +224,7 @@ def test_prepared_bounds_reclassification_refactors():
     l2[:, :4] = mid
     u2[:, :4] = mid
     out2 = solver.solve_prepared(q, l2, u2)
-    ref = BatchedSolver(Settings(**_kw())).solve(P, q, A, l2, u2)
+    ref = BatchedSolver(Settings(**_kw()), **CPU_SHARED).solve(P, q, A, l2, u2)
     np.testing.assert_array_equal(_np(out2.status), _np(ref.status))
     np.testing.assert_allclose(_np(out2.x), _np(ref.x), rtol=1e-4, atol=1e-5)
 
@@ -228,9 +233,9 @@ def test_prepared_fixed_rho_kernel_path():
     P, q, A, l, u = _batch(seed=7)
     kw = _kw(adaptive_rho=False, dtype=np.float32, eps_abs=1e-3,
              eps_rel=1e-3)
-    out = BatchedSolver(Settings(**kw)).prepare(P, A, q=q).solve_prepared(
-        q, l, u)
-    ref = BatchedSolver(Settings(**kw)).solve(P, q, A, l, u)
+    out = BatchedSolver(Settings(**kw), **CPU_SHARED).prepare(
+        P, A, q=q).solve_prepared(q, l, u)
+    ref = BatchedSolver(Settings(**kw), **CPU_SHARED).solve(P, q, A, l, u)
     np.testing.assert_array_equal(_np(out.status), _np(ref.status))
     np.testing.assert_allclose(_np(out.x), _np(ref.x), rtol=1e-4, atol=1e-4)
     jax_out = JaxSolver(settings=JaxSettings(**kw), kkt_mode="shared")
@@ -240,7 +245,7 @@ def test_prepared_fixed_rho_kernel_path():
 
 def test_prepared_rho0_override():
     P, q, A, l, u = _batch(seed=11)
-    solver = BatchedSolver(Settings(**_kw()))
+    solver = BatchedSolver(Settings(**_kw()), **CPU_SHARED)
     solver.prepare(P, A, q=q)
     out1 = solver.solve_prepared(q, l, u)
     rho_ad = float(_np(out1.rho_estimate)[0])
@@ -250,7 +255,7 @@ def test_prepared_rho0_override():
 
 def test_update_settings_rho_reaches_prepared_solve():
     P, q, A, l, u = _batch(seed=19)
-    solver = BatchedSolver(Settings(**_kw(adaptive_rho=False)))
+    solver = BatchedSolver(Settings(**_kw(adaptive_rho=False)), **CPU_SHARED)
     solver.prepare(P, A, q=q)
     out1 = solver.solve_prepared(q, l, u)
     assert np.all(_np(out1.status) == C.SOLVED)
@@ -258,7 +263,8 @@ def test_update_settings_rho_reaches_prepared_solve():
     solver.update_settings(rho=2.5)
     out2 = solver.solve_prepared(q, l, u)
 
-    ref = BatchedSolver(Settings(**_kw(adaptive_rho=False, rho=2.5)))
+    ref = BatchedSolver(Settings(**_kw(adaptive_rho=False, rho=2.5)),
+                        **CPU_SHARED)
     out_ref = ref.prepare(P, A, q=q).solve_prepared(q, l, u)
     np.testing.assert_array_equal(_np(out2.iter), _np(out_ref.iter))
     np.testing.assert_allclose(_np(out2.x), _np(out_ref.x), rtol=1e-9,
@@ -269,9 +275,12 @@ def test_update_settings_rho_reaches_prepared_solve():
 
 def test_prepared_guards():
     P, q, A, l, u = _batch(B=4)
-    with pytest.raises(NotImplementedError, match="kkt_mode"):
-        BatchedSolver(Settings(**_kw()), kkt_mode="inverse")
-    s = BatchedSolver(Settings(**_kw()))
+    with pytest.raises(ValueError, match="kkt_mode='shared'"):
+        BatchedSolver(Settings(**_kw()), kkt_mode="inverse",
+                      device="cpu").prepare(P, A)
+    with pytest.raises(ValueError, match="kkt_mode"):
+        BatchedSolver(Settings(**_kw()), kkt_mode="lu", device="cpu")
+    s = BatchedSolver(Settings(**_kw()), **CPU_SHARED)
     with pytest.raises(RuntimeError, match="prepare"):
         s.solve_prepared(q, l, u)
 
@@ -285,12 +294,12 @@ def test_rollout_matches_host_loop():
         qk, lk, uk = qlu
         return qk + key, lk, uk
 
-    s1 = BatchedSolver(Settings(**_kw())).prepare(P, A, q=q)
+    s1 = BatchedSolver(Settings(**_kw()), **CPU_SHARED).prepare(P, A, q=q)
     out = s1.solve_rollout(q, l, u, step, n_steps=4, keep_xs=True)
     assert tuple(out["status"].shape) == (4, B)
     assert np.all(_np(out["status"]) == C.SOLVED)
 
-    s2 = BatchedSolver(Settings(**_kw())).prepare(P, A, q=q)
+    s2 = BatchedSolver(Settings(**_kw()), **CPU_SHARED).prepare(P, A, q=q)
     qk = torch.as_tensor(q)
     xk = yk = None
     for k in range(4):
@@ -313,7 +322,7 @@ def test_rollout_matches_host_loop():
 
 
 def test_rollout_requires_prepare():
-    s = BatchedSolver(Settings(**_kw()))
+    s = BatchedSolver(Settings(**_kw()), **CPU_SHARED)
     with pytest.raises(RuntimeError, match="prepare"):
         s.solve_rollout(np.zeros((4, 8)), np.zeros((4, 12)),
                         np.ones((4, 12)), lambda x, qlu, k: qlu, 2)
@@ -333,7 +342,7 @@ def test_sanitize_starts_cold_starts_nan_lanes():
 
 def test_nan_starts_solve_like_cold_starts():
     P, q, A, l, u = _batch(B=4, seed=23)
-    solver = BatchedSolver(Settings(**_kw()))
+    solver = BatchedSolver(Settings(**_kw()), **CPU_SHARED)
     cold = solver.solve(P, q, A, l, u)
     x0 = np.full(q.shape, np.nan)
     y0 = np.full(l.shape, np.nan)
@@ -351,7 +360,8 @@ def test_infeasible_lanes_are_nan_filled():
     l, u = -np.ones((B, m)), np.ones((B, m))
     l[:2, 0], u[:2, 0] = 2.0, 3.0
     l[:2, 1], u[:2, 1] = -3.0, -2.0
-    out = BatchedSolver(Settings(**_kw(max_iter=2000))).solve(P, q, A, l, u)
+    out = BatchedSolver(Settings(**_kw(max_iter=2000)),
+                        **CPU_SHARED).solve(P, q, A, l, u)
     st = _np(out.status)
     assert np.all(st[:2] == C.PRIMAL_INFEASIBLE) and np.all(st[2:] == C.SOLVED)
     assert np.isnan(_np(out.x)[:2]).all() and np.isnan(_np(out.y)[:2]).all()
@@ -372,12 +382,11 @@ def test_nanfill_keeps_present_solutions():
     assert not torch.isnan(out.x[:2]).any() and torch.isnan(out.x[2]).all()
 
 
-@pytest.mark.parametrize("kw", [dict(polish=True), dict(time_limit=1.0),
-                                dict(mixed_precision=True)],
-                         ids=["polish", "time_limit", "mixed_precision"])
+@pytest.mark.parametrize("kw", [dict(polish=True), dict(time_limit=1.0)],
+                         ids=["polish", "time_limit"])
 def test_unported_settings_refuse(kw):
     P, q, A, l, u = _batch(B=2, n=4, m=6)
-    solver = BatchedSolver(Settings(**_kw(**kw)))
+    solver = BatchedSolver(Settings(**_kw(**kw)), **CPU_SHARED)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver.solve(P, q, A, l, u)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -386,14 +395,26 @@ def test_unported_settings_refuse(kw):
 
 def test_mesh_refuses():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedSolver(Settings(), mesh=object())
+        BatchedSolver(Settings(), mesh=object(), **CPU_SHARED)
 
 
 def test_cuda_device_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        BatchedSolver(Settings(), device="cuda")
+        BatchedSolver(Settings(), device="cuda", kkt_mode="shared")
+
+
+@pytest.mark.parametrize("kkt_mode", ["inverse", "shared"])
+def test_default_device_without_gpu_raises(kkt_mode):
+    """The solver runs on the GPU unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedSolver(Settings(), kkt_mode=kkt_mode)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedSolver(Settings())
+    assert BatchedSolver(Settings(), device="cpu").kkt_mode == "inverse"
 
 
 def test_default_dtype_follows_torch():
@@ -422,7 +443,8 @@ def test_import_leaves_jax_out():
 def test_shared_warm_resolve_rho_carryover():
     B, n, m = 256, 8, 12
     P, q, A, l, u = make_batch(B, n, m, seed=5)
-    solver = BatchedSolver(Settings(**_kw(eps_abs=1e-6, eps_rel=1e-6)))
+    solver = BatchedSolver(Settings(**_kw(eps_abs=1e-6, eps_rel=1e-6)),
+                           **CPU_SHARED)
     out = solver.solve(P, q, A, l, u)
     assert np.all(_np(out.status) == C.SOLVED)
     out2 = solver.solve(P, q + 0.01, A, l, u, x0=out.x, y0=out.y,
@@ -434,7 +456,7 @@ def test_shared_warm_resolve_rho_carryover():
 def test_shared_check_termination_zero_runs_exactly_max_iter():
     P, q, A, l, u = make_batch(8, 8, 12, seed=3)
     kw = _kw(eps_abs=1e-6, eps_rel=1e-6, check_termination=0, max_iter=130)
-    out = BatchedSolver(Settings(**kw)).solve(P, q, A, l, u)
+    out = BatchedSolver(Settings(**kw), **CPU_SHARED).solve(P, q, A, l, u)
     assert np.all(_np(out.iter) == 130)
     assert np.all(_np(out.status) == C.MAX_ITER_REACHED)
     ref = JaxSolver(settings=JaxSettings(**kw), kkt_mode="shared").solve(
@@ -448,13 +470,13 @@ def test_shared_accurate_classification_at_max_iter():
     and max_iter is classified Solved by the final accurate check."""
     P, q, A, l, u = make_batch(4, 8, 12, seed=21)
     probe = BatchedSolver(Settings(**_kw(eps_abs=1e-6, eps_rel=1e-6,
-                                         check_termination=1)))
+                                         check_termination=1)), **CPU_SHARED)
     k = int(_np(probe.solve(P, q, A, l, u).iter).max())
     cap = k + 2
     if cap % 30 == 0:
         cap += 1
     kw = _kw(eps_abs=1e-6, eps_rel=1e-6, check_termination=30, max_iter=cap)
-    out = BatchedSolver(Settings(**kw)).solve(P, q, A, l, u)
+    out = BatchedSolver(Settings(**kw), **CPU_SHARED).solve(P, q, A, l, u)
     assert np.all(_np(out.status) == C.SOLVED), _np(out.status)
     ref = JaxSolver(settings=JaxSettings(**kw), kkt_mode="shared").solve(
         P, q, A, l, u)

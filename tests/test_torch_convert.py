@@ -23,6 +23,8 @@ from osqp_tpu_torch.core import dyn_from_settings as torch_dyn
 from osqp_tpu_torch.settings import Settings
 
 KW = dict(eps_abs=1e-5, eps_rel=1e-5, verbose=False, dtype=np.float64)
+#: the shared-structure engine on the CPU
+CPU_SHARED = dict(kkt_mode="shared", device="cpu")
 
 
 def _batch(B=16, n=12, m=20, seed=0):
@@ -47,7 +49,7 @@ def test_warm_prepared_solve_from_jax_state():
     first = jax_solver.solve_prepared(q, l, u)
     assert np.all(np.asarray(first.status) == C.SOLVED)
 
-    port = BatchedSolver(Settings(**KW))
+    port = BatchedSolver(Settings(**KW), **CPU_SHARED)
     convert.load_prepared(port, _numpy_tree(jax_solver._prep))
     warm0 = convert.output_to_torch(_numpy_tree(first), "cpu", np.float64)
 

@@ -1,14 +1,17 @@
-"""The Hopper leg kernel against its plain PyTorch twin, on the card.
+"""The port's three Hopper kernels against their plain PyTorch twins, and
+whole solves on the card against the same solves on the CPU.
 
-Needs an NVIDIA GPU (the kernel is CUDA C++ and has no CPU mode): every
+Needs an NVIDIA GPU (the kernels are CUDA C++ and have no CPU mode): every
 test skips with that reason when ``torch.cuda.is_available()`` is false.
 On a machine with a card run
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` (the suite's
 conftest imports jax, which the port does not need).
 
-Both sides get the same inputs on the same device. float64: statuses and
-iteration counts identical, floats within rtol 1e-9 (the kernel sums in
-another order than cuBLAS). float32 and tf32: statuses identical.
+Both sides get the same inputs on the same device. Leg kernel, float64:
+statuses and iteration counts identical, floats within rtol 1e-9 (the
+kernel sums in another order than cuBLAS); float32 and tf32: statuses
+identical. The iteration and fused kernels: each test states its
+tolerance. Solves in float64: statuses and iteration counts identical.
 """
 
 import numpy as np
@@ -21,6 +24,8 @@ from osqp_tpu_torch.ops import solve_kernel as SK
 from osqp_tpu_torch.settings import Settings
 
 pytestmark = pytest.mark.cuda
+#: the shared-structure engine on the CPU
+CPU_SHARED = dict(kkt_mode="shared", device="cpu")
 
 
 @pytest.fixture
@@ -115,10 +120,11 @@ def test_solver_on_cuda_matches_cpu_and_launches(dev):
     w = 0.1 + rng.rand(B, m)
     s = dict(eps_abs=1e-6, eps_rel=1e-6, dtype=np.float64)
     before = SK.admm_solve_shared.launches
-    gpu = BatchedSolver(Settings(**s), device=dev).solve(P, q, A, c - w,
-                                                         c + w)
+    gpu = BatchedSolver(Settings(**s), kkt_mode="shared",
+                        device=dev).solve(P, q, A, c - w, c + w)
     assert SK.admm_solve_shared.launches > before
-    cpu = BatchedSolver(Settings(**s)).solve(P, q, A, c - w, c + w)
+    cpu = BatchedSolver(Settings(**s), **CPU_SHARED).solve(P, q, A, c - w,
+                                                           c + w)
     np.testing.assert_array_equal(gpu.status.cpu().numpy(),
                                   cpu.status.numpy())
     np.testing.assert_array_equal(gpu.iter.cpu().numpy(), cpu.iter.numpy())
@@ -152,8 +158,9 @@ def test_staggered_batch_cuda_matches_cpu_f64(dev):
     P, q, A, l, u = _staggered(271, 8, 12, seed=4)
     assert SK.pick_group(271, 8, 12, 8) == 2
     s = dict(eps_abs=1e-6, eps_rel=1e-6, dtype=np.float64)
-    gpu = BatchedSolver(Settings(**s), device=dev).solve(P, q, A, l, u)
-    cpu = BatchedSolver(Settings(**s)).solve(P, q, A, l, u)
+    gpu = BatchedSolver(Settings(**s), kkt_mode="shared",
+                        device=dev).solve(P, q, A, l, u)
+    cpu = BatchedSolver(Settings(**s), **CPU_SHARED).solve(P, q, A, l, u)
     it = cpu.iter.numpy()
     assert it.max() > it.min() and cpu.rho_updates[0] > 0
     for f in ("status", "iter", "rho_updates"):
@@ -168,8 +175,197 @@ def test_f32_solver_cuda_matches_cpu_statuses(dev, mp):
     P, q, A, l, u = _staggered(300, 16, 24, seed=4, eq_row=False)
     s = dict(eps_abs=1e-3, eps_rel=1e-3, dtype=np.float32,
              matmul_precision=mp)
-    gpu = BatchedSolver(Settings(**s), device=dev).solve(P, q, A, l, u)
-    cpu = BatchedSolver(Settings(**s)).solve(P, q, A, l, u)
+    gpu = BatchedSolver(Settings(**s), kkt_mode="shared",
+                        device=dev).solve(P, q, A, l, u)
+    cpu = BatchedSolver(Settings(**s), **CPU_SHARED).solve(P, q, A, l, u)
     np.testing.assert_array_equal(gpu.status.cpu().numpy(),
                                   cpu.status.numpy())
     assert (cpu.status.numpy() == C.SOLVED).all()
+
+
+# ---------------------------------------------------------------------------
+# the iteration kernel (csrc/shared_iter.cu) against its twin
+# ---------------------------------------------------------------------------
+
+def _iter_args(dev, dtype, B, n=16, m=24, seed=0, nan_lane=None):
+    """α-folded operators and a warm state for ``admm_iterate_shared``."""
+    rng = np.random.RandomState(seed)
+    M = rng.randn(n, n) / np.sqrt(n)
+    P = M.T @ M + 0.1 * np.eye(n)
+    A = rng.randn(m, n) / np.sqrt(n)
+    rho = 0.05 + 0.45 * rng.rand(m)
+    R = P + 1e-6 * np.eye(n) + A.T @ (rho[:, None] * A)
+    Rinv = np.linalg.inv(0.5 * (R + R.T))
+    alpha = float(torch.tensor(1.6, dtype=dtype))
+    q = rng.randn(B, n)
+    if nan_lane is not None:
+        q[nan_lane, 1] = np.nan
+    c = 0.1 * rng.randn(B, m)
+    w = 1.0 + rng.rand(B, m)
+    x = 0.3 * rng.randn(B, n)
+    y = 0.3 * rng.randn(B, m)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    ops = [t(alpha * Rinv), t(A), t(alpha * Rinv @ A.T), t(rho), t(1 / rho),
+           t(q), t(c - w), t(c + w), t(x), t(y),
+           t(np.clip(x @ A.T, c - w, c + w))]
+    return ops, float(torch.tensor(1e-6, dtype=dtype)), alpha
+
+
+def _scale_err(k, p):
+    """max |kernel - twin| over max(1, max |twin|), NaNs required to match."""
+    k, p = k.cpu().double().numpy(), p.cpu().double().numpy()
+    np.testing.assert_array_equal(np.isnan(k), np.isnan(p))
+    ok = ~np.isnan(p)
+    return np.abs(k[ok] - p[ok]).max() / max(1.0, np.abs(p[ok]).max())
+
+
+@pytest.mark.parametrize("variant", ["f64", "f32", "lowp_f64", "lowp_f32",
+                                     "tf32"])
+def test_iterate_kernel_matches_plain(dev, variant):
+    """Ragged B (37 lanes in groups of 8), the last live group at 4 of 5,
+    and a NaN lane. Tolerances relative to max(1, max |x|): float64 and
+    lowp-float64 1e-9 (summation order only; the bf16 casts of float64
+    values that agree to 1e-16 round alike); float32 and tf32 1e-4;
+    lowp-float32 1e-2, since a float32 sum that differs in the last bit
+    can round w or rhs to the neighbouring bf16 value (2^-8 relative)."""
+    from osqp_tpu_torch.ops import shared_iter as SI
+    dtype = torch.float64 if variant.endswith("f64") else torch.float32
+    lowp, tf32 = variant.startswith("lowp"), variant == "tf32"
+    tol = {"f64": 1e-9, "lowp_f64": 1e-9, "f32": 1e-4, "tf32": 1e-4,
+           "lowp_f32": 1e-2}[variant]
+    ops, sigma, alpha = _iter_args(dev, dtype, 37, nan_lane=5)
+    before = SI.admm_iterate_shared.launches
+    k = SI._cuda_iterate(*ops, sigma, alpha, 25, 4, 8, lowp=lowp, tf32=tf32)
+    assert SI.admm_iterate_shared.launches == before + 1
+    p = SI.admm_iterate_shared_reference(*ops, sigma, alpha, 25, 4, 8,
+                                         lowp=lowp, tf32=tf32)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _scale_err(a, b) <= tol
+    assert torch.isnan(k[0][5]).all()
+    # lanes of the skipped fifth group (32..36) come back as they went in
+    assert torch.equal(k[0][32:], ops[8][32:])
+    assert torch.equal(k[4][32:], ops[9][32:])
+
+
+def test_iterate_kernel_single_step_and_groups(dev):
+    from osqp_tpu_torch.ops import shared_iter as SI
+    ops, sigma, alpha = _iter_args(dev, torch.float64, 20, seed=1)
+    for G, K in ((1, 1), (16, 3), (2, 7)):
+        k = SI._cuda_iterate(*ops, sigma, alpha, K, -(-20 // G), G)
+        p = SI.admm_iterate_shared_reference(*ops, sigma, alpha, K,
+                                             -(-20 // G), G)
+        for a, b in zip(k, p):
+            assert _scale_err(a, b) <= 1e-9
+
+
+# ---------------------------------------------------------------------------
+# the fused kernel (csrc/fused_iter.cu) against its twin
+# ---------------------------------------------------------------------------
+
+def _fused_args(dev, dtype, B, n, m, seed=0, nan_lane=None):
+    rng = np.random.RandomState(seed)
+    M = rng.randn(B, n, n) / np.sqrt(n)
+    P = np.einsum("bji,bjk->bik", M, M) + 0.1 * np.eye(n)
+    A = rng.randn(B, m, n) / np.sqrt(n)
+    rho = 0.05 + 0.45 * rng.rand(B, m)
+    R = P + 1e-6 * np.eye(n) + np.einsum("bmi,bm,bmj->bij", A, rho, A)
+    Rinv = np.linalg.inv(0.5 * (R + np.swapaxes(R, 1, 2)))
+    q = rng.randn(B, n)
+    if nan_lane is not None:
+        q[nan_lane, 0] = np.nan
+    c = 0.1 * rng.randn(B, m)
+    w = 1.0 + rng.rand(B, m)
+    x = 0.3 * rng.randn(B, n)
+    y = 0.3 * rng.randn(B, m)
+    z = np.clip(np.einsum("bmn,bn->bm", A, x), c - w, c + w)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    return [t(a) for a in (Rinv, A, q, c - w, c + w, rho, 1 / rho, x, y, z)]
+
+
+@pytest.mark.parametrize("dtype,staged", [
+    (torch.float32, True), (torch.float32, False), (torch.float64, False)],
+    ids=["f32-staged", "f32-device", "f64-device"])
+def test_fused_kernel_matches_plain(dev, dtype, staged):
+    """The main shape n=128, m=256: float32 stages the operators in shared
+    memory (about 206 KB), float64 reads them from device memory; float32
+    runs the device-memory route too. A NaN problem stays NaN and alone.
+    Tolerances relative to max(1, max |x|): float64 1e-9, float32 1e-4
+    (summation order)."""
+    from osqp_tpu_torch.ops import fused_iter as FI
+    ops = _fused_args(dev, dtype, 6, 128, 256, nan_lane=2)
+    assert FI.staged_fits(128, 256, ops[0].element_size()) == (
+        dtype == torch.float32)
+    sigma = float(torch.tensor(1e-6, dtype=dtype))
+    alpha = float(torch.tensor(1.6, dtype=dtype))
+    before = FI.admm_iterate.launches
+    k = FI._cuda_iterate(*ops, sigma, alpha, 25, staged=staged)
+    assert FI.admm_iterate.launches == before + 1
+    p = FI.admm_iterate_reference(*ops, sigma, alpha, 25)
+    torch.cuda.synchronize()
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    for a, b in zip(k, p):
+        assert _scale_err(a, b) <= tol
+    assert torch.isnan(k[0][2]).all()
+
+
+def test_fused_kernel_single_step_small(dev):
+    from osqp_tpu_torch.ops import fused_iter as FI
+    ops = _fused_args(dev, torch.float64, 3, 8, 12, seed=1)
+    k = FI._cuda_iterate(*ops, 1e-6, 1.6, 1)
+    p = FI.admm_iterate_reference(*ops, 1e-6, 1.6, 1)
+    for a, b in zip(k, p):
+        assert _scale_err(a, b) <= 1e-12
+    assert torch.equal(k[3], ops[7]) and torch.equal(k[4], ops[8])
+
+
+# ---------------------------------------------------------------------------
+# whole solves on the card against the CPU (float64)
+# ---------------------------------------------------------------------------
+
+def _per_lane(B, n, m, seed):
+    rng = np.random.RandomState(seed)
+    M = rng.randn(B, n, n) / np.sqrt(n)
+    P = np.einsum("bji,bjk->bik", M, M) + 0.1 * np.eye(n)
+    A = rng.randn(B, m, n) / np.sqrt(n)
+    q = rng.randn(B, n)
+    c = 0.1 * rng.randn(B, m)
+    w = 1.0 + rng.rand(B, m)
+    return P, q, A, c - w, c + w
+
+
+@pytest.mark.parametrize("mode", ["fused", "inverse"])
+def test_per_lane_solve_cuda_matches_cpu_f64(dev, mode):
+    from osqp_tpu_torch.ops import fused_iter as FI
+    P, q, A, l, u = _per_lane(24, 12, 20, seed=5)
+    s = dict(eps_abs=1e-6, eps_rel=1e-6, dtype=np.float64)
+    before = FI.admm_iterate.launches
+    gpu = BatchedSolver(Settings(**s), kkt_mode=mode, device=dev).solve(
+        P, q, A, l, u)
+    assert (FI.admm_iterate.launches > before) == (mode == "fused")
+    cpu = BatchedSolver(Settings(**s), kkt_mode=mode, device="cpu").solve(
+        P, q, A, l, u)
+    assert (cpu.status.numpy() == C.SOLVED).all()
+    for f in ("status", "iter", "rho_updates"):
+        np.testing.assert_array_equal(getattr(gpu, f).cpu().numpy(),
+                                      getattr(cpu, f).numpy(), err_msg=f)
+    np.testing.assert_allclose(gpu.x.cpu().numpy(), cpu.x.numpy(),
+                               rtol=1e-7, atol=1e-9)
+
+
+def test_mixed_precision_solve_cuda_matches_cpu_f64(dev):
+    """The bf16 chunks round w and rhs, so a last-bit difference can move
+    a lane's path; these lanes' counts are stable (see _staggered)."""
+    from osqp_tpu_torch.ops import shared_iter as SI
+    P, q, A, l, u = _staggered(64, 8, 12, seed=6, eq_row=False)
+    s = dict(eps_abs=1e-6, eps_rel=1e-6, dtype=np.float64,
+             mixed_precision=True)
+    before = SI.admm_iterate_shared.launches
+    gpu = BatchedSolver(Settings(**s), kkt_mode="shared",
+                        device=dev).solve(P, q, A, l, u)
+    assert SI.admm_iterate_shared.launches > before
+    cpu = BatchedSolver(Settings(**s), **CPU_SHARED).solve(P, q, A, l, u)
+    assert (cpu.status.numpy() == C.SOLVED).all()
+    for f in ("status", "iter"):
+        np.testing.assert_array_equal(getattr(gpu, f).cpu().numpy(),
+                                      getattr(cpu, f).numpy(), err_msg=f)

@@ -180,6 +180,25 @@ def test_chol_factor_nan_fills_non_pd():
     assert torch.isnan(L).all()
 
 
+def test_batched_chol_factor_nan_fills_only_the_non_pd_lane():
+    """A (3,n,n) stack whose middle matrix is not PD: that lane's factor
+    is NaN, the others are the true factors, as ``lax.linalg.cholesky``
+    gives them (float64, rtol 1e-12)."""
+    rng = np.random.RandomState(8)
+    n = 5
+    M = rng.randn(3, n, n)
+    R = np.einsum("bji,bjk->bik", M, M) + 0.5 * np.eye(n)
+    R[1, 0, 0] = -1.0
+    ref = np.asarray(jax.lax.linalg.cholesky(jnp.asarray(R)))
+    port = TSC.chol_factor(_t(R)).numpy()
+    # the lower triangle is what a factor's triangular solves read
+    lower = np.tril_indices(n)
+    assert np.isnan(port[1][lower]).all() and np.isnan(ref[1][lower]).all()
+    assert np.isfinite(port[[0, 2]]).all()
+    np.testing.assert_allclose(port[[0, 2]], ref[[0, 2]], rtol=1e-12,
+                               atol=1e-14)
+
+
 @pytest.mark.parametrize("adaptive", [True, False],
                          ids=["adaptive", "fixed"])
 @pytest.mark.parametrize("family", sorted(SMALL))
