@@ -7,8 +7,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. builds the three kernels (csrc/*.cu, one nvcc process per source, all at
    once) and times the build;
 3. holds the leg kernel against its plain PyTorch twin on the card, one leg
-   of 100 iterations on 256 bench-shape QPs, in float64, float32 and tf32,
-   and times one leg at B=4096;
+   of 100 iterations on 256 bench-shape QPs, in float64 (both routes: the
+   simple one and the tiled one's float64 instantiation), float32 and
+   tf32; prints the tiled route's group, threads, shared memory and the
+   compiler's registers and spills; times one float32 leg at B=4096 (and
+   at each group size that fits), the same leg's 300 float32 products
+   through torch.matmul as a yardstick, and a float64 leg on each route;
 4. drives the shared-structure path at full size — BatchedSolver(
    kkt_mode="shared") on B=4096 QPs with n=128, m=256, eps 1e-3, float32:
    a cold solve, prepare, five warm prepared re-solves and two three-step
@@ -39,7 +43,9 @@ exits non-zero too. The compiler's register/shared-memory report goes to
 the output directory beside the run (``out_dir`` in ``main``).
 """
 
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -140,6 +146,22 @@ def gpu_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def ptxas_usage(log, kernel):
+    """Registers and spills that ptxas reported for the first entry
+    function whose mangled name contains ``kernel``."""
+    lines = log.splitlines()
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            rest = " ".join(lines[k + 1:k + 4])
+            regs = re.search(r"Used (\d+) registers", rest)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", rest)
+            return (f"{regs.group(1) if regs else '?'} registers, spill "
+                    f"stores/loads {spill.group(1) if spill else '?'}/"
+                    f"{spill.group(2) if spill else '?'} bytes")
+    return "not in the compiler report"
+
+
 def cuda_ms(torch, fn, reps):
     """Median device time of ``fn`` in ms, CUDA events around each call."""
     times = []
@@ -236,12 +258,24 @@ def main():
                                  SK.admm_solve_shared_reference)
 
     # ---- 3. kernel against plain twin, one leg, 256 bench-shape QPs ----
+    real_leg = SK._cuda_leg
+
+    def tiled_legs():
+        # float64 legs on the tiled route (float32 takes it by default)
+        return mock.patch.object(SK, "_cuda_leg",
+                                 functools.partial(real_leg, tiled=True))
+
     with precision_scope():
         for name, dtype, tf32 in (("f64", torch.float64, False),
+                                  ("f64-tiled", torch.float64, False),
                                   ("f32", torch.float32, False),
                                   ("tf32", torch.float32, True)):
             args, kw = leg_setup(torch, dtype, 256)
-            k = SK.admm_solve_shared(*args, tf32=tf32, **kw)
+            if name == "f64-tiled":
+                with tiled_legs():
+                    k = SK.admm_solve_shared(*args, group=8, **kw)
+            else:
+                k = SK.admm_solve_shared(*args, tf32=tf32, **kw)
             with plain_legs():
                 p = SK.admm_solve_shared(*args, tf32=tf32, **kw)
             torch.cuda.synchronize()
@@ -254,9 +288,17 @@ def main():
                 f"{err:.3e}")
             require(np.array_equal(st_k, st_p), f"{name}: statuses differ")
             require((st_k == C.SOLVED).any(), f"{name}: no lane solved")
-            if name == "f64":
-                require(it_same == 1.0, "f64: iteration counts differ")
-                require(err <= 1e-9, f"f64: x differs by {err} > 1e-9")
+            if name.startswith("f64"):
+                tol = 1e-12 if name == "f64-tiled" else 1e-9
+                require(it_same == 1.0, f"{name}: iteration counts differ")
+                require(err <= tol, f"{name}: x differs by {err} > {tol:g}")
+
+        # the tiled route's tile at the main shape, and what ptxas made of it
+        G32 = SK.pick_group(B_MAIN, N, M, 4)
+        say(f"[3] tiled route f32 B={B_MAIN}: G={G32}, {SK._NT} threads, "
+            f"{SK.tiled_smem_bytes(G32, N, M, 4)} bytes of shared memory, "
+            f"{-(-B_MAIN // G32)} blocks; ptxas: "
+            f"{ptxas_usage(log, 'tiled_leg_kernelIfLi%dE' % G32)}")
 
         # leg time at the main path's shape (B=4096, float32, first leg)
         args, kw = leg_setup(torch, torch.float32, B_MAIN)
@@ -287,6 +329,40 @@ def main():
         leg_bound, leg_by = bound(leg_flops, leg_bytes, PEAK_F32)
         say(f"[3] leg bound {leg_bound:.3f} ms ({leg_by}): "
             f"{leg_flops / 1e9:.2f} GFLOP, {leg_bytes / 1e6:.1f} MB")
+        # yardstick, never called by the port: the leg's 100 x 3 iteration
+        # products on the whole batch through cuBLAS in full float32
+        Rinv_a = 1.6 * args[0]
+        mats = (torch.randn(B_MAIN, M, device="cuda"), args[2],
+                torch.randn(B_MAIN, N, device="cuda"), Rinv_a,
+                Rinv_a @ args[2].T)
+
+        def products():
+            for _ in range(100):
+                torch.matmul(mats[0], mats[1])
+                torch.matmul(mats[2], mats[3])
+                torch.matmul(mats[2], mats[4])
+        mm_ms = cuda_ms(torch, products, 5)
+        say(f"[3] yardstick: 100 x 3 float32 products of the leg through "
+            f"torch.matmul (precision {torch.get_float32_matmul_precision()}"
+            f") {mm_ms:.3f} ms")
+        # float64 legs at B=4096, both routes, each at its own group rule
+        args64, kw64 = leg_setup(torch, torch.float64, B_MAIN)
+        G64 = SK.pick_group_tiled(B_MAIN, N, M, 8)
+        f64_ms = cuda_ms(torch, lambda: SK.admm_solve_shared(*args64,
+                                                             **kw64), 5)
+        with tiled_legs():
+            f64t_ms = cuda_ms(torch, lambda: SK.admm_solve_shared(
+                *args64, group=G64, **kw64), 5)
+        say(f"[3] f64 leg B={B_MAIN} K=100: simple route (G="
+            f"{SK.pick_group(B_MAIN, N, M, 8)}) {f64_ms:.3f} ms, tiled route "
+            f"(G={G64}) {f64t_ms:.3f} ms")
+        del args64, kw64
+        # the tiled route's group sizes that fit at this shape (the rule's
+        # measurement)
+        sweep = {G: cuda_ms(torch, lambda: SK.admm_solve_shared(
+            *args, group=G, **kw), 5) for G in (8, 16, 32)}
+        say(f"[3] f32 leg B={B_MAIN} by group size: " + ", ".join(
+            f"G={G} {t:.3f} ms" for G, t in sweep.items()))
 
     # ---- 4. the slice at full size ----
     P, q, A, l, u = make_batch(B_MAIN, N, M, SEED)

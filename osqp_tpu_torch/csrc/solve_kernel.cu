@@ -2,7 +2,70 @@
 //
 // Replaces the Pallas TPU kernel osqp_tpu/ops/solve_kernel.py::admm_solve_shared
 // (kernel body `_kernel`, solve_kernel.py:44-300); its plain PyTorch twin is
-// osqp_tpu_torch/ops/solve_kernel.py::admm_solve_shared_reference.
+// osqp_tpu_torch/ops/solve_kernel.py::admm_solve_shared_reference. Two
+// bodies: the tiled route (tiled_leg_kernel) runs float32, and exists in
+// float64 for the card tests; the simple route (leg_kernel) runs tf32 and
+// float64.
+//
+// ---- Tiled route ----
+//
+// What bounds it. Per iteration a lane needs 2n(n+m) + 2mn FLOPs (rhs = w A,
+// then rhs [alpha Rinv | alpha Rinv A^T]): at B=4096, n=128, m=256 a
+// 100-iteration leg is about 72.5 GFLOP with its checks, 1.08 ms at the
+// H100's 67 TFLOP/s float32 FMA peak; its bytes (38 MB) take 0.01 ms. So
+// it is bound by operations, if the FMA units are kept fed. The simple
+// route below does not: one shared-memory load per FMA, half the threads
+// idle in the n-wide product, and every block of G=8 lanes re-reading the
+// 320 KB of iteration operators from L2 every iteration (16.8 GB a leg).
+//
+// Design. Each block runs a group of G lanes (G=32 at the bench shape, 128
+// blocks, one per SM) through the iteration as two small GEMMs with the
+// lanes as the M dimension: rhs (G x n) = w (G x m) . A (m x n), and
+// [x~ | z~] (G x (n+m)) = rhs . Op (n x (n+m)), where the wrapper
+// concatenates Op = [alpha Rinv | alpha Rinv A^T] once per leg.
+// - The lane operands (w, rhs) and x sit in shared memory k-major (the G
+//   lanes of one row next to each other), so one 16-byte load gives four
+//   lanes; z and t, which no product reads, have rows padded to G+1.
+// - Each thread keeps a register tile of TM lanes by 4*RC columns (at G=32
+//   4 x 12 in the (n+m)-wide product, 4 x 4 in the others: 12 and 8 FMAs
+//   per shared load; G/8 lanes from G=8 up, one below). All 256 threads
+//   work in every product; a product wider than a pass (CT*4*RC columns,
+//   CT threads along the columns) runs in passes.
+// - The operators stream from L2 through a two-stage ring of slices, one
+//   TMA bulk copy a slice (one a row when a pass is narrower than the
+//   operator) issued by one thread and completing on the buffer's mbarrier,
+//   the next slice in flight while the block multiplies the current one.
+//   One operator read from L2 serves 32 lanes, four times the simple
+//   route's: a leg reads about 4.2 GB of operator slices.
+// - The group's rows of l and u (lane-major) arrive by TMA while the wide
+//   product runs, into w's buffer and a buffer of their own; the wide
+//   product's epilogue leaves v in z's buffer, and a pass over the lanes
+//   clips it. q comes from device memory in the rhs epilogue, loaded for all
+//   of a thread's outputs before any store; the x/t snapshot stays in the
+//   xp/yp output rows (t units until the end).
+// - The five products of the classification (every check_every iterations)
+//   run through the same tiled product; their per-lane reductions combine
+//   the threads that share a lane group with shuffles, then the warps.
+//
+// What bounds it now (NVIDIA H100 80GB HBM3 at 700 W, B=4096, n=128,
+// m=256; osqp_tpu_torch/tools/leg_ablation.py): about 30 us an iteration
+// against 11.7 us of FMA issue. Taking parts out one at a time saves 8.4 us
+// for the FMAs, 1.6 us more for the inner loops' shared loads, 1.2 us for
+// the clip and 0.6 us for the epilogues, and nothing measurable for the
+// operator copies; halving the slices costs 8.7 us. What is left without
+// FMAs and shared loads, about 20 us, is mostly the per-slice skeleton (a
+// barrier, an mbarrier wait and a copy issue for each of 14 slices) and
+// the w pass. Splitting a slice's rows between parts of the block, with
+// 8 x 12 tiles and fewer shared loads per FMA, was slower: its epilogues
+// and sums ran on a fraction of the threads and its registers spilled.
+//
+// Products are true FMAs on the CUDA cores in the working type (no TF32 or
+// bf16 tensor cores: the reference's float32 means full float32 products).
+// Every tile edge is masked, so any n, m and B work: rows that are not
+// 16-byte aligned go by cp.async, 16 bytes or one value a copy, with
+// columns past the edge zero-filled.
+//
+// ---- Simple route (tf32 and float64) ----
 //
 // Design. One thread block runs one group of G lanes for the whole leg: the
 // iteration loop, the classification every check_every global iterations,
@@ -27,9 +90,9 @@
 // a second block per SM and still gives at least 132 blocks: more resident
 // warps pay more than the operator reuse of a larger G.
 //
-// Numerics follow the twin step for step. Reductions that the reference
-// takes with jnp.max propagate NaN here too (explicit comparisons, never
-// fmax), and the clip of v to [l, u] keeps a NaN, so a broken lane is
+// Numerics (both routes) follow the twin step for step. Reductions that the
+// reference takes with jnp.max propagate NaN here too (explicit comparisons,
+// never fmax), and the clip of v to [l, u] keeps a NaN, so a broken lane is
 // classified Non_convex. The tf32 variant splits both operands of the three
 // iteration products into bf16 hi/lo halves (round to nearest even) and
 // accumulates hi*hi + hi*lo + lo*hi in float32, each product exact, as the
@@ -40,6 +103,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cstdint>
 
 namespace {
 
@@ -66,7 +130,7 @@ enum { OP_MAX, OP_SUM, OP_AND };
 
 template <typename T>
 struct LegArgs {
-  const T *rinv, *rat, *P, *A, *At;
+  const T *rinv, *rat, *op, *P, *A, *At;  // op: [rinv | rat], tiled route
   const T *rho, *rho_inv, *einv, *dinv, *d_raw, *e_raw, *einv_raw, *dinv_raw;
   const T *q, *l, *u, *x0, *y0, *z0;
   const int *status0;
@@ -118,10 +182,71 @@ __device__ __forceinline__ T finish(const T* red, int slot, int g) {
   return r;
 }
 
+// Classify lane g of a running group from the finished reductions and
+// write its packed stats s (status, iters, pri, dua, prn, dun); a lane
+// already classified keeps its stats.
+template <typename T, int G>
+__device__ void classify(const LegArgs<T>& a, T* s, const T* LS, const T* RED, int g,
+                         int git) {
+  if (s[0] != T(ST_RUNNING)) return;
+  const T pri = finish<OP_MAX, G>(RED, Q_PRI, g);
+  const T prn = nmax(finish<OP_MAX, G>(RED, Q_AXMAX, g), finish<OP_MAX, G>(RED, Q_ZMAX, g));
+  const T dua = a.cinv * finish<OP_MAX, G>(RED, Q_DUA, g);
+  const T dun = a.cinv * nmax(nmax(finish<OP_MAX, G>(RED, Q_PXMAX, g),
+                                   finish<OP_MAX, G>(RED, Q_ATYMAX, g)),
+                              finish<OP_MAX, G>(RED, Q_QMAX, g));
+  const bool solved = (pri <= a.eps_abs + a.eps_rel * prn) &&
+                      (dua <= a.eps_abs + a.eps_rel * dun);
+  const bool bad = isnan_(pri) || isnan_(dua) || pri > T(OSQP_INFTY) || dua > T(OSQP_INFTY);
+  const bool prim = LS[g] > a.eps_pinf &&
+                    finish<OP_MAX, G>(RED, Q_ATDYMAX, g) <= a.eps_pinf &&
+                    finish<OP_AND, G>(RED, Q_BOK, g) > T(0.5) &&
+                    finish<OP_SUM, G>(RED, Q_LHS, g) < -a.eps_pinf;
+  const bool dual = LS[G + g] > a.eps_dinf &&
+                    finish<OP_MAX, G>(RED, Q_PDXMAX, g) <= a.eps_dinf &&
+                    finish<OP_SUM, G>(RED, Q_QDX, g) < -a.eps_dinf &&
+                    finish<OP_AND, G>(RED, Q_CONDA, g) > T(0.5);
+  const double code = bad ? ST_NCVX : solved ? ST_SOLVED
+                    : prim ? ST_PINF : dual ? ST_DINF : ST_RUNNING;
+  s[0] = T(code);
+  if (code != ST_RUNNING) s[1] = T(git);
+  s[2] = pri;
+  s[3] = dua;
+  s[4] = prn;
+  s[5] = dun;
+}
+
 __device__ __forceinline__ void split(float v, float& hi, float& lo) {
   const __nv_bfloat16 h = __float2bfloat16_rn(v);
   hi = __bfloat162float(h);
   lo = __bfloat162float(__float2bfloat16_rn(v - hi));
+}
+
+// A skipped group (at or past live_groups): copy the inputs through.
+template <typename T, int G>
+__device__ void copy_through(const LegArgs<T>& a, int b0) {
+  const int n = a.n, m = a.m, tid = threadIdx.x;
+  for (int idx = tid; idx < G * n; idx += NT) {
+    const int b = b0 + idx / n;
+    if (b < a.B) {
+      const size_t o = size_t(b0) * n + idx;
+      a.x[o] = a.x0[o];
+      a.xp[o] = a.x0[o];
+    }
+  }
+  for (int idx = tid; idx < G * m; idx += NT) {
+    const int b = b0 + idx / m;
+    if (b < a.B) {
+      const size_t o = size_t(b0) * m + idx;
+      a.y[o] = a.y0[o];
+      a.yp[o] = a.y0[o];
+      a.z[o] = a.z0[o];
+    }
+  }
+  for (int idx = tid; idx < G * 8; idx += NT) {
+    const int b = b0 + idx / 8;
+    if (b < a.B) a.stats[size_t(b0) * 8 + idx] = (idx % 8 == 0) ? T(a.status0[b]) : T(0);
+  }
 }
 
 template <typename T, int G, bool TF32>
@@ -131,28 +256,8 @@ __global__ void __launch_bounds__(NT) leg_kernel(const LegArgs<T> a) {
   const int n = a.n, m = a.m, tid = threadIdx.x, grp = blockIdx.x;
   const int b0 = grp * G;
 
-  if (grp >= a.live_groups) {  // skipped group: copy the inputs through
-    for (int idx = tid; idx < G * n; idx += NT) {
-      const int b = b0 + idx / n;
-      if (b < a.B) {
-        const size_t o = size_t(b0) * n + idx;
-        a.x[o] = a.x0[o];
-        a.xp[o] = a.x0[o];
-      }
-    }
-    for (int idx = tid; idx < G * m; idx += NT) {
-      const int b = b0 + idx / m;
-      if (b < a.B) {
-        const size_t o = size_t(b0) * m + idx;
-        a.y[o] = a.y0[o];
-        a.yp[o] = a.y0[o];
-        a.z[o] = a.z0[o];
-      }
-    }
-    for (int idx = tid; idx < G * 8; idx += NT) {
-      const int b = b0 + idx / 8;
-      if (b < a.B) a.stats[size_t(b0) * 8 + idx] = (idx % 8 == 0) ? T(a.status0[b]) : T(0);
-    }
+  if (grp >= a.live_groups) {
+    copy_through<T, G>(a, b0);
     return;
   }
 
@@ -492,38 +597,7 @@ __global__ void __launch_bounds__(NT) leg_kernel(const LegArgs<T> a) {
     }
     __syncthreads();
 
-    if (tid < G) {
-      T* s = ST + tid * 8;
-      if (s[0] == T(ST_RUNNING)) {
-        const T pri = finish<OP_MAX, G>(RED, Q_PRI, tid);
-        const T prn = nmax(finish<OP_MAX, G>(RED, Q_AXMAX, tid),
-                           finish<OP_MAX, G>(RED, Q_ZMAX, tid));
-        const T dua = a.cinv * finish<OP_MAX, G>(RED, Q_DUA, tid);
-        const T dun = a.cinv * nmax(nmax(finish<OP_MAX, G>(RED, Q_PXMAX, tid),
-                                         finish<OP_MAX, G>(RED, Q_ATYMAX, tid)),
-                                    finish<OP_MAX, G>(RED, Q_QMAX, tid));
-        const bool solved = (pri <= a.eps_abs + a.eps_rel * prn) &&
-                            (dua <= a.eps_abs + a.eps_rel * dun);
-        const bool bad = isnan_(pri) || isnan_(dua) || pri > T(OSQP_INFTY) ||
-                         dua > T(OSQP_INFTY);
-        const bool prim = LS[tid] > a.eps_pinf &&
-                          finish<OP_MAX, G>(RED, Q_ATDYMAX, tid) <= a.eps_pinf &&
-                          finish<OP_AND, G>(RED, Q_BOK, tid) > T(0.5) &&
-                          finish<OP_SUM, G>(RED, Q_LHS, tid) < -a.eps_pinf;
-        const bool dual = LS[G + tid] > a.eps_dinf &&
-                          finish<OP_MAX, G>(RED, Q_PDXMAX, tid) <= a.eps_dinf &&
-                          finish<OP_SUM, G>(RED, Q_QDX, tid) < -a.eps_dinf &&
-                          finish<OP_AND, G>(RED, Q_CONDA, tid) > T(0.5);
-        const double code = bad ? ST_NCVX : solved ? ST_SOLVED
-                          : prim ? ST_PINF : dual ? ST_DINF : ST_RUNNING;
-        s[0] = T(code);
-        if (code != ST_RUNNING) s[1] = T(git);
-        s[2] = pri;
-        s[3] = dua;
-        s[4] = prn;
-        s[5] = dun;
-      }
-    }
+    if (tid < G) classify<T, G>(a, ST + tid * 8, LS, RED, tid, git);
     __syncthreads();
 
     // certificate snapshot after every 4th check, lanes still running only
@@ -557,6 +631,677 @@ __global__ void __launch_bounds__(NT) leg_kernel(const LegArgs<T> a) {
     if (b0 + idx / 8 < a.B) a.stats[size_t(b0) * 8 + idx] = ST[idx];
 }
 
+// ============================ tiled route ============================
+
+constexpr int KS = 16;      // operator rows per staged slice
+constexpr int STAGES = 2;   // slices in the ring
+constexpr int RC_WIDE = 3;  // column chunks of 4 per thread, wide product
+constexpr int MBAR_BYTES = 64;  // the mbarriers of the ring and of l and u
+
+// A thread's tile: TM lanes (4 at G=32) by the product's 4*RC columns.
+// From G=8 up there are 8 lane groups, so that the 32 threads along the
+// columns cover the bench shape's n+m=384 columns in one pass of 4 x 3
+// chunks and none computes a column twice.
+template <int G>
+struct Tile {
+  static constexpr int TM = G < 8 ? 1 : G / 8;  // lanes per thread
+  static constexpr int LG = G / TM;             // lane groups
+  static constexpr int CT = NT / LG;            // threads along the columns
+};
+
+__host__ __device__ constexpr int r4(int v) { return (v + 3) & ~3; }
+
+// Row length of one ring slice: the widest product's pass, or all of its
+// columns when they are fewer.
+template <int G>
+__host__ __device__ int slice_width(int n, int m) {
+  const int w = 4 * RC_WIDE * Tile<G>::CT, c = r4(n + m);
+  return w < c ? w : c;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes from device to shared memory (L2 only); bytes past src_bytes
+// are zero-filled
+__device__ __forceinline__ void cp16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes) : "memory");
+}
+template <int BYTES>
+__device__ __forceinline__ void cp_elem(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "n"(BYTES), "r"(src_bytes) : "memory");
+}
+// the thread's earlier cp.async copies arrive on mb when they have landed
+__device__ __forceinline__ void cp_arrive(uint64_t* mb) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(mb))
+               : "memory");
+}
+// one TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned), completing its bytes on mb
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* mb) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(mb)) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* mb, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(mb)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// order this thread's earlier generic accesses to shared memory before its
+// later bulk copies
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* mb) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(mb)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* mb, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(mb)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* mb, int parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(mb)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The ring of operator slices: STAGES buffers of stage_elems values, each
+// with an mbarrier that all NT threads arrive on once per slice and that
+// completes when the slice has landed. seq numbers the slices of the whole
+// kernel, so slice q uses buffer q % STAGES in phase (q / STAGES) & 1.
+template <typename T>
+struct Ring {
+  T* buf;
+  uint64_t* mb;
+  int stage_elems;
+  int seq;
+};
+
+// K consecutive values from shared memory in as few loads as their type
+// and alignment allow (K * sizeof(T) bytes aligned)
+template <int K>
+__device__ __forceinline__ void lds(const float* p, float (&v)[K]) {
+  if constexpr (K == 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+  } else if constexpr (K == 2) {
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    v[0] = w.x; v[1] = w.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+template <int K>
+__device__ __forceinline__ void lds(const double* p, double (&v)[K]) {
+  if constexpr (K == 1) {
+    v[0] = p[0];
+  } else {
+#pragma unroll
+    for (int h = 0; h < K / 2; ++h) {
+      const double2 w = reinterpret_cast<const double2*>(p)[h];
+      v[2 * h] = w.x;
+      v[2 * h + 1] = w.y;
+    }
+  }
+}
+
+// One pass of a product through the ring: columns c0.. of the operator
+// (w a slice row in shared memory, wv of them from the operator), ks
+// operator rows a slice, nsl slices with the ring's numbers seq0..
+template <typename T>
+struct Pass {
+  const T* op;
+  int ld, nk, ncols, c0, w, wv, ks, nsl, seq0;
+  bool aligned, bulk, whole;
+};
+
+// Copy slice s of pass p into its ring buffer. A slice whose rows are
+// 16-byte aligned is one TMA bulk copy (or one a row, when the pass is
+// narrower than the operator), issued by warp 0; others go by cp.async,
+// 16 bytes or one value a copy. Every thread arrives on the buffer's
+// mbarrier once.
+template <typename T>
+__device__ __forceinline__ void stage_slice(const Pass<T>& p, int s, Ring<T>& rg) {
+  constexpr int VEC = 16 / int(sizeof(T));
+  if (s >= p.nsl) return;
+  const int tid = threadIdx.x, q = p.seq0 + s;
+  T* dst = rg.buf + (q % STAGES) * rg.stage_elems;
+  uint64_t* mb = rg.mb + q % STAGES;
+  const int k0 = s * p.ks, rows = min(p.ks, p.nk - k0);
+  if (p.bulk) {
+    if (tid < 32) {
+      if (tid == 0) {
+        fence_async();
+        mbar_arrive_tx(mb, unsigned(rows * p.wv * sizeof(T)));
+      }
+      __syncwarp();
+      if (p.whole) {
+        if (tid == 0)
+          bulk_copy(dst, p.op + size_t(k0) * p.ld, unsigned(rows * p.wv * sizeof(T)), mb);
+      } else {
+        for (int r = tid; r < rows; r += 32)
+          bulk_copy(dst + r * p.w, p.op + size_t(k0 + r) * p.ld + p.c0,
+                    unsigned(p.wv * sizeof(T)), mb);
+      }
+      if (tid != 0) mbar_arrive(mb);
+    } else {
+      mbar_arrive(mb);
+    }
+    return;
+  }
+  const int pieces = p.w / VEC;  // 16-byte pieces of a slice row
+  for (int i = tid; i < rows * pieces; i += NT) {
+    const int r = i / pieces, e = (i - r * pieces) * VEC, col = p.c0 + e;
+    const T* src = p.op + size_t(k0 + r) * p.ld + col;
+    T* d = dst + r * p.w + e;
+    if (p.aligned) {
+      const int valid = max(0, min(VEC, p.ncols - col));
+      cp16(d, valid ? src : p.op, valid * int(sizeof(T)));
+    } else {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const bool ok = col + v < p.ncols;
+        cp_elem<sizeof(T)>(d + v, ok ? src + v : p.op, ok ? int(sizeof(T)) : 0);
+      }
+    }
+  }
+  cp_arrive(mb);
+}
+
+// Plan the pass of columns c0.. of a product that takes CT*RC*4 columns a
+// pass, take its slice numbers, and issue its first STAGES-1 slices. A
+// slice holds as many rows as a ring buffer: KS in the widest product,
+// more in the narrower ones.
+template <int G, int RC, typename T>
+__device__ __forceinline__ Pass<T> begin_pass(const T* op, int ld, int nk, int ncols, int c0,
+                                              Ring<T>& rg) {
+  Pass<T> p;
+  p.op = op;
+  p.ld = ld;
+  p.nk = nk;
+  p.ncols = ncols;
+  p.c0 = c0;
+  p.w = min(Tile<G>::CT * RC * 4, r4(ncols - c0));
+  p.wv = min(p.w, ncols - c0);
+  p.aligned = (size_t(ld) * sizeof(T)) % 16 == 0 && (reinterpret_cast<size_t>(op) & 15) == 0;
+  p.bulk = p.aligned && (p.wv * sizeof(T)) % 16 == 0;
+  p.whole = p.bulk && c0 == 0 && p.w == ld;  // a slice is one contiguous block
+  p.ks = rg.stage_elems / p.w;
+  p.nsl = (nk + p.ks - 1) / p.ks;
+  p.seq0 = rg.seq;
+  rg.seq += p.nsl;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) stage_slice(p, s, rg);
+  return p;
+}
+
+// out(g, c) = sum_k L[k*G + g] * op[k*ld + c] for the block's G lanes,
+// k < nk, c < ncols: the lane operand L is k-major in shared memory, the
+// operator row-major in device memory. A pass covers CT*RC*4 columns; its
+// operator rows pass through the ring a slice at a time, the next STAGES-1
+// slices in flight while the block multiplies the current one. Thread
+// (lg, ct) keeps lanes lg*TM.. by column chunks ct + CT*q in registers.
+//
+// After each pass it first calls pre(i, g, c) for all its outputs
+// (i = g - lg*TM), so that the device-memory loads an epilogue needs are in
+// flight together rather than one per store, then epi(i, g, c, value,
+// pre's result) for each. Ends with every thread past its last read of L
+// and of the ring.
+template <int G, int RC, typename T, typename Pre, typename Epi>
+__device__ __forceinline__ void product(const T* L, const T* __restrict__ op, int ld, int nk,
+                                        int ncols, Ring<T>& rg, Pre&& pre, Epi&& epi) {
+  using Tl = Tile<G>;
+  constexpr int TM = Tl::TM, LG = Tl::LG, CT = Tl::CT;
+  const int tid = threadIdx.x, lg = tid % LG, ct = tid / LG;
+  for (int c0 = 0; c0 < ncols; c0 += CT * RC * 4) {
+    const Pass<T> p = begin_pass<G, RC>(op, ld, nk, ncols, c0, rg);
+    const int w = p.w, ks = p.ks, nsl = p.nsl, seq0 = p.seq0;
+    T acc[TM][RC * 4];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < RC * 4; ++j) acc[i][j] = T(0);
+    // chunks past the slice edge read the last chunk; their outputs are masked
+    int off[RC];
+#pragma unroll
+    for (int q = 0; q < RC; ++q) off[q] = min(ct + CT * q, w / 4 - 1) * 4;
+
+    for (int s = 0; s < nsl; ++s) {
+      const int sq = seq0 + s;
+      mbar_wait(rg.mb + sq % STAGES, (sq / STAGES) & 1);  // slice s has landed
+      __syncthreads();  // every thread is done with slice s-1: refill its buffer
+      stage_slice(p, s + STAGES - 1, rg);
+      const T* sl = rg.buf + (sq % STAGES) * rg.stage_elems;
+      const T* ln = L + size_t(s) * ks * G + lg * TM;
+      const auto row = [&](int r) {
+        T av[TM];
+        lds<TM>(ln + r * G, av);
+#pragma unroll
+        for (int c = 0; c < RC; ++c) {
+          T bv[4];
+          lds<4>(sl + r * w + off[c], bv);
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][c * 4 + j] += av[i] * bv[j];
+        }
+      };
+      // whole blocks of KS rows without a branch, so that the compiler can
+      // issue the loads of later rows ahead of the FMAs of earlier ones
+      const int rows = min(ks, nk - s * ks);
+      int r0 = 0;
+      for (; r0 + KS <= rows; r0 += KS) {
+#pragma unroll
+        for (int r = 0; r < KS; ++r) row(r0 + r);
+      }
+      for (; r0 < rows; ++r0) row(r0);
+    }
+    decltype(pre(0, 0, 0)) pv[RC][4][TM];
+#pragma unroll
+    for (int q = 0; q < RC; ++q) {
+      const int cc = (ct + CT * q) * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (cc < w && c0 + cc + j < ncols) {
+#pragma unroll
+          for (int i = 0; i < TM; ++i) pv[q][j][i] = pre(i, lg * TM + i, c0 + cc + j);
+        }
+      }
+    }
+    __syncthreads();  // the ring and L are free again
+#pragma unroll
+    for (int q = 0; q < RC; ++q) {
+      const int cc = (ct + CT * q) * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (cc < w && c0 + cc + j < ncols) {
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+            epi(i, lg * TM + i, c0 + cc + j, acc[i][q * 4 + j], pv[q][j][i]);
+        }
+      }
+    }
+  }
+}
+
+// Copy count values from s0 to d0 and from s1 to d1 (device to shared
+// memory), completing on mb with NT arrivals: two TMA bulk copies when every
+// end is 16-byte aligned and the size a multiple of 16 bytes, else cp.async
+// one value a copy.
+template <typename T>
+__device__ __forceinline__ void stage_pair(T* d0, const T* s0, T* d1, const T* s1, int count,
+                                           uint64_t* mb) {
+  const unsigned bytes = unsigned(count * sizeof(T));
+  const size_t ends = reinterpret_cast<size_t>(d0) | reinterpret_cast<size_t>(s0) |
+                      reinterpret_cast<size_t>(d1) | reinterpret_cast<size_t>(s1);
+  const int tid = threadIdx.x;
+  if (bytes % 16 == 0 && (ends & 15) == 0) {
+    if (tid == 0) {
+      fence_async();
+      mbar_arrive_tx(mb, 2 * bytes);
+      bulk_copy(d0, s0, bytes, mb);
+      bulk_copy(d1, s1, bytes, mb);
+    } else {
+      mbar_arrive(mb);
+    }
+    return;
+  }
+  for (int i = tid; i < count; i += NT) {
+    cp_elem<sizeof(T)>(d0 + i, s0 + i, int(sizeof(T)));
+    cp_elem<sizeof(T)>(d1 + i, s1 + i, int(sizeof(T)));
+  }
+  cp_arrive(mb);
+}
+
+// a product's epilogue that needs nothing from device memory
+struct NoPre {
+  __device__ __forceinline__ int operator()(int, int, int) const { return 0; }
+};
+template <typename T>
+struct Pair {
+  T lo, hi;
+};
+
+// Combine v[i], the partial of lane (tid % LGX) * TMX + i, over the threads
+// that share tid % LGX within the warp, and park the warp's result in
+// red[(slot*G + lane)*NW + warp] for finish().
+template <int OP, int G, int LGX, int TMX, typename T>
+__device__ __forceinline__ void stage_lanes(const T (&v)[TMX], T* red, int slot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < TMX; ++i) {
+    T r = v[i];
+#pragma unroll
+    for (int o = 16; o >= LGX; o >>= 1) r = combine<OP>(r, __shfl_xor_sync(0xffffffffu, r, o));
+    if (lane < LGX) red[(slot * G + lane * TMX + i) * NW + warp] = r;
+  }
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(NT, 1) tiled_leg_kernel(const LegArgs<T> a) {
+  using Tl = Tile<G>;
+  constexpr int TM = Tl::TM, LG = Tl::LG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n = a.n, m = a.m, tid = threadIdx.x, grp = blockIdx.x;
+  const int b0 = grp * G, lg = tid % LG;
+
+  if (grp >= a.live_groups) {
+    copy_through<T, G>(a, b0);
+    return;
+  }
+
+  // ---- shared-memory layout (tiled_smem_elems below, tiled_smem_bytes in
+  // Python); k-major: element (k, g) at k*G + g ----
+  // the ring's mbarriers, then the ring (STAGES, KS, slice width)
+  Ring<T> ring{reinterpret_cast<T*>(smem_raw + MBAR_BYTES),
+               reinterpret_cast<uint64_t*>(smem_raw), KS * slice_width<G>(n, m), 0};
+  T* X = ring.buf + STAGES * ring.stage_elems;  // (n, G) iterate x
+  T* Rh = X + r4(n * G);           // (n, G) rhs; during a check dxn_bar, then A^T y
+  // z and t are no product's operand: their rows are padded to G+1 values
+  // so that a warp can walk them along a lane or along a row without bank
+  // conflicts
+  constexpr int SG = G + 1;
+  T* Z = Rh + r4(n * G);           // (m, SG) z; v before the clip
+  T* Tt = Z + r4(m * SG);          // (m, SG) t = y / rho
+  T* W = Tt + r4(m * SG);          // (m, G) w; during a check Einv_raw*dyn, then rho t;
+                                   // (G, m) l from the rhs product to the clip
+  T* UB = W + r4(m * G);           // (G, m) u, for the clip
+  T* ST = UB + r4(m * G);          // (G, 8) packed stats
+  T* LS = ST + G * 8;              // (4, G) p_nrm, d_nrm, p_s, d_s
+  T* RED = LS + 4 * G;             // (NQ, G, NW) reduction slots
+  // device-memory rows of this group's lanes: the x and t snapshots (t
+  // units until the end, when yp becomes rho t_prev)
+  T* XPg = a.xp + size_t(b0) * n;
+  T* TPg = a.yp + size_t(b0) * m;
+  const T* Qg = a.q + size_t(b0) * n;
+  const T* Lg = a.l + size_t(b0) * m;
+  const T* Ug = a.u + size_t(b0) * m;
+  const int nlanes = min(G, a.B - b0);  // lanes g < nlanes exist
+
+  for (int idx = tid; idx < G * n; idx += NT) {
+    const int g = idx / n, k = idx - g * n;
+    const T v = g < nlanes ? a.x0[size_t(b0) * n + idx] : T(0);
+    X[k * G + g] = v;
+    if (g < nlanes) XPg[idx] = v;
+  }
+  for (int idx = tid; idx < G * m; idx += NT) {
+    const int g = idx / m, i = idx - g * m;
+    const bool ok = g < nlanes;
+    const size_t o = size_t(b0) * m + idx;
+    const T t = ok ? a.rho_inv[i] * a.y0[o] : T(0);
+    Tt[i * SG + g] = t;
+    Z[i * SG + g] = ok ? a.z0[o] : T(0);
+    if (ok) TPg[idx] = t;
+  }
+  // the ring's mbarriers, then that of l and u
+  if (tid <= STAGES) mbar_init(ring.mb + tid, NT);
+  if (tid == 0) mbar_init_fence();
+  if (tid < G) {
+    // lanes past the batch end (ragged last group) count as classified
+    T* s = ST + tid * 8;
+    s[0] = tid < nlanes ? T(a.status0[b0 + tid]) : T(ST_SOLVED);
+    s[1] = T(0);
+    s[2] = s[3] = inf_<T>();
+    s[4] = s[5] = s[6] = s[7] = T(0);
+  }
+  const T beta = T(1) - a.alpha;
+  const int nclip = nlanes * m;  // values of z clipped per iteration
+  int bounds_phase = 0;          // of the mbarrier of l and u
+  int it = 0;
+  bool done = __syncthreads_and(tid >= G || ST[tid * 8] != T(ST_RUNNING));
+
+  while (it < a.max_iter && !done) {
+    bool live[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) live[i] = ST[(lg * TM + i) * 8] == T(ST_RUNNING);
+
+    // w = rho (z - t)
+    for (int idx = tid; idx < m * G; idx += NT)
+      W[idx] = __ldg(a.rho + idx / G) * (Z[idx + idx / G] - Tt[idx + idx / G]);
+    fence_async();  // w's buffer takes l by TMA once the rhs product is done
+
+    // rhs = sigma x - q + w A
+    const auto q_of = [&](int, int g, int j) {
+      return g < nlanes ? __ldg(Qg + size_t(g) * n + j) : T(0);
+    };
+    product<G, 1>(W, a.A, n, m, n, ring, q_of, [&](int, int g, int j, T v, T qv) {
+      Rh[j * G + g] = a.sigma * X[j * G + g] - qv + v;
+    });
+    // the group's rows of l and u land while the wide product runs
+    stage_pair(W, Lg, UB, Ug, nclip, ring.mb + STAGES);
+
+    // columns c < n: x = rhs alpha Rinv + (1-alpha) x
+    // columns n + i: z, t from v = rhs alpha Rinv A^T + (1-alpha) z + t
+    // (v parks in Z until the clip below)
+    product<G, RC_WIDE>(Rh, a.op, n + m, n, n + m, ring, NoPre(),
+                        [&](int i, int g, int c, T v, int) {
+      if (!live[i]) return;
+      if (c < n) {
+        X[c * G + g] = v + beta * X[c * G + g];
+      } else {
+        const int o = (c - n) * SG + g;
+        Z[o] = v + beta * Z[o] + Tt[o];
+      }
+    });
+    // z = clip(v, l, u), t = v - z, lane by lane (l and u lane-major)
+    mbar_wait(ring.mb + STAGES, bounds_phase);
+    bounds_phase ^= 1;
+    __syncthreads();
+    int cg = tid / m, ci = tid - cg * m;  // lane and row of the value at hand
+    for (int idx = tid; idx < nclip; idx += NT) {
+      if (ST[cg * 8] == T(ST_RUNNING)) {
+        const int o = ci * SG + cg;
+        const T vv = Z[o], lo = W[idx], hi = UB[idx];
+        T zn = vv < lo ? lo : vv;  // jnp.clip: NaN stays NaN
+        zn = zn > hi ? hi : zn;
+        Tt[o] = vv - zn;
+        Z[o] = zn;
+      }
+      for (ci += NT; ci >= m; ci -= m) ++cg;
+    }
+    __syncthreads();
+    ++it;
+
+    const int git = a.it0 + it;
+    if (a.check_every <= 0 || git % a.check_every != 0) continue;
+
+    // ===================== classification =====================
+    // The elementwise phases give each thread the one lane gf = tid % G.
+    const int gf = tid % G;
+    const bool okf = gf < nlanes;
+
+    // phase A: certificate deltas' norms
+    {
+      T pn[1] = {T(0)}, dn[1] = {T(0)};
+      for (int idx = tid; idx < m * G; idx += NT) {
+        const int i = idx / G;
+        const T tt = Tt[idx + i];
+        const T tp = okf ? TPg[size_t(gf) * m + i] : tt;
+        const T f = (a.cinv_raw * a.e_raw[i]) * a.rho[i];
+        pn[0] = nmax(pn[0], tabs(f * (tt - tp)));
+      }
+      for (int idx = tid; idx < n * G; idx += NT) {
+        const int j = idx / G;
+        const T xp = okf ? XPg[size_t(gf) * n + j] : X[idx];
+        dn[0] = nmax(dn[0], tabs(a.d_raw[j] * (X[idx] - xp)));
+      }
+      stage_lanes<OP_MAX, G, G, 1>(pn, RED, Q_PNRM);
+      stage_lanes<OP_MAX, G, G, 1>(dn, RED, Q_DNRM);
+    }
+    __syncthreads();
+    if (tid < G) {
+      const T pnr = finish<OP_MAX, G>(RED, Q_PNRM, tid);
+      const T dnr = finish<OP_MAX, G>(RED, Q_DNRM, tid);
+      LS[tid] = pnr;
+      LS[G + tid] = dnr;
+      LS[2 * G + tid] = T(1) / nmax(pnr, T(DIV_GUARD));
+      LS[3 * G + tid] = T(1) / nmax(dnr, T(DIV_GUARD));
+    }
+    __syncthreads();
+
+    // phase B: normalized deltas, bound tests, q . dx
+    {
+      T lhs[1] = {T(0)}, bok[1] = {T(1)}, zmax[1] = {T(0)}, qdx[1] = {T(0)},
+        qmax[1] = {T(0)};
+      const T ps = LS[2 * G + gf], ds = LS[3 * G + gf];
+      for (int idx = tid; idx < m * G; idx += NT) {
+        const int i = idx / G;
+        const T f = (a.cinv_raw * a.e_raw[i]) * a.rho[i];
+        const T er = a.einv_raw[i], ee = a.einv[i];
+        const T tt = Tt[idx + i];
+        const T tp = okf ? TPg[size_t(gf) * m + i] : tt;
+        const T dyn = (f * (tt - tp)) * ps;
+        W[idx] = er * dyn;
+        const T dyp = nmax(dyn, T(0)), dym = nmin(dyn, T(0));
+        const T ub = okf ? Ug[size_t(gf) * m + i] : T(0);
+        const T lb = okf ? Lg[size_t(gf) * m + i] : T(0);
+        const T u_us = er * ub, l_us = er * lb;
+        const bool uinf = u_us >= T(INFTY_THRESH);
+        const bool linf = l_us <= -T(INFTY_THRESH);
+        const bool ok = (!uinf || dyp <= a.eps_pinf) && (!linf || -dym <= a.eps_pinf);
+        if (!ok) bok[0] = T(0);
+        lhs[0] += (uinf ? T(0) : u_us * dyp) + (linf ? T(0) : l_us * dym);
+        zmax[0] = nmax(zmax[0], tabs(ee * Z[idx + i]));
+      }
+      for (int idx = tid; idx < n * G; idx += NT) {
+        const int j = idx / G;
+        const T fq = a.cinv_raw * a.dinv_raw[j];
+        const T xp = okf ? XPg[size_t(gf) * n + j] : X[idx];
+        const T qv = okf ? Qg[size_t(gf) * n + j] : T(0);
+        const T dxb = X[idx] - xp;
+        Rh[idx] = dxb * ds;
+        qdx[0] += (fq * qv) * ((a.d_raw[j] * dxb) * ds);
+        qmax[0] = nmax(qmax[0], tabs(a.dinv[j] * qv));
+      }
+      stage_lanes<OP_SUM, G, G, 1>(lhs, RED, Q_LHS);
+      stage_lanes<OP_AND, G, G, 1>(bok, RED, Q_BOK);
+      stage_lanes<OP_MAX, G, G, 1>(zmax, RED, Q_ZMAX);
+      stage_lanes<OP_SUM, G, G, 1>(qdx, RED, Q_QDX);
+      stage_lanes<OP_MAX, G, G, 1>(qmax, RED, Q_QMAX);
+    }
+
+    // phase C: the five products, reduced per lane (the products' own
+    // barriers order them against phase B and against each other)
+    {
+      T pdxm[TM], atdym[TM], cA[TM], pri[TM], axm[TM], dua[TM], pxm[TM], atym[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        pdxm[i] = atdym[i] = pri[i] = axm[i] = dua[i] = pxm[i] = atym[i] = T(0);
+        cA[i] = T(1);
+      }
+      // P dxn_bar and A^T (Einv_raw dyn)
+      product<G, 1>(Rh, a.P, n, n, n, ring, NoPre(), [&](int i, int, int j, T v, int) {
+        pdxm[i] = nmax(pdxm[i], tabs((a.cinv_raw * a.dinv_raw[j]) * v));
+      });
+      product<G, 1>(W, a.A, n, m, n, ring, NoPre(), [&](int i, int, int j, T v, int) {
+        atdym[i] = nmax(atdym[i], tabs(a.dinv_raw[j] * v));
+      });
+      // A dxn_bar
+      const auto lane_bounds = [&](int, int g, int j) {
+        Pair<T> b{T(0), T(0)};
+        if (g < nlanes) {
+          b.lo = __ldg(Lg + size_t(g) * m + j);
+          b.hi = __ldg(Ug + size_t(g) * m + j);
+        }
+        return b;
+      };
+      product<G, 1>(Rh, a.At, m, n, m, ring, lane_bounds,
+                    [&](int i, int, int j, T v, Pair<T> b) {
+        const T er = a.einv_raw[j];
+        const T a_dx = er * v;
+        const bool uinf = er * b.hi >= T(INFTY_THRESH);
+        const bool linf = er * b.lo <= -T(INFTY_THRESH);
+        if (!((uinf || a_dx <= a.eps_dinf) && (linf || a_dx >= -a.eps_dinf))) cA[i] = T(0);
+      });
+      // A x
+      product<G, 1>(X, a.At, m, n, m, ring, NoPre(), [&](int i, int g, int j, T v, int) {
+        const T ee = a.einv[j];
+        pri[i] = nmax(pri[i], tabs(ee * (v - Z[j * SG + g])));
+        axm[i] = nmax(axm[i], tabs(ee * v));
+      });
+      // A^T y = (rho t) A, parked in Rh; then P x and the dual residual.
+      // Both products give column j of lane g to the same thread.
+      for (int idx = tid; idx < m * G; idx += NT) W[idx] = a.rho[idx / G] * Tt[idx + idx / G];
+      product<G, 1>(W, a.A, n, m, n, ring, NoPre(), [&](int i, int g, int j, T v, int) {
+        Rh[j * G + g] = v;
+        atym[i] = nmax(atym[i], tabs(a.dinv[j] * v));
+      });
+      product<G, 1>(X, a.P, n, n, n, ring, q_of, [&](int i, int g, int j, T v, T qv) {
+        const T dd = a.dinv[j];
+        dua[i] = nmax(dua[i], tabs(dd * ((v + qv) + Rh[j * G + g])));
+        pxm[i] = nmax(pxm[i], tabs(dd * v));
+      });
+      stage_lanes<OP_MAX, G, LG, TM>(pdxm, RED, Q_PDXMAX);
+      stage_lanes<OP_MAX, G, LG, TM>(atdym, RED, Q_ATDYMAX);
+      stage_lanes<OP_AND, G, LG, TM>(cA, RED, Q_CONDA);
+      stage_lanes<OP_MAX, G, LG, TM>(pri, RED, Q_PRI);
+      stage_lanes<OP_MAX, G, LG, TM>(axm, RED, Q_AXMAX);
+      stage_lanes<OP_MAX, G, LG, TM>(atym, RED, Q_ATYMAX);
+      stage_lanes<OP_MAX, G, LG, TM>(dua, RED, Q_DUA);
+      stage_lanes<OP_MAX, G, LG, TM>(pxm, RED, Q_PXMAX);
+    }
+    __syncthreads();
+
+    if (tid < G) classify<T, G>(a, ST + tid * 8, LS, RED, tid, git);
+    __syncthreads();
+
+    // certificate snapshot after every 4th check, lanes still running only
+    if (git % (4 * a.check_every) == 0) {
+      for (int idx = tid; idx < nlanes * n; idx += NT) {
+        const int g = idx / n;
+        if (ST[g * 8] == T(ST_RUNNING)) XPg[idx] = X[(idx - g * n) * G + g];
+      }
+      for (int idx = tid; idx < nlanes * m; idx += NT) {
+        const int g = idx / m;
+        if (ST[g * 8] == T(ST_RUNNING)) TPg[idx] = Tt[(idx - g * m) * SG + g];
+      }
+    }
+    done = __syncthreads_and(tid >= G || ST[tid * 8] != T(ST_RUNNING));
+  }
+
+  // lanes still running ran to the leg's last iteration
+  if (tid < G && ST[tid * 8] == T(ST_RUNNING)) ST[tid * 8 + 1] = T(a.it0 + it);
+  __syncthreads();
+  for (int idx = tid; idx < nlanes * n; idx += NT) {
+    const int g = idx / n;
+    a.x[size_t(b0) * n + idx] = X[(idx - g * n) * G + g];
+  }
+  for (int idx = tid; idx < nlanes * m; idx += NT) {
+    const int g = idx / m, i = idx - g * m;
+    const size_t o = size_t(b0) * m + idx;
+    const T r = a.rho[i];
+    a.y[o] = r * Tt[i * SG + g];
+    a.yp[o] = r * TPg[idx];
+    a.z[o] = Z[i * SG + g];
+  }
+  for (int idx = tid; idx < nlanes * 8; idx += NT) a.stats[size_t(b0) * 8 + idx] = ST[idx];
+}
+
+size_t tiled_smem_elems(int G, int n, int m) {
+  int sw = 0;
+  switch (G) {
+    case 32: sw = slice_width<32>(n, m); break;
+    case 16: sw = slice_width<16>(n, m); break;
+    case 8: sw = slice_width<8>(n, m); break;
+    case 4: sw = slice_width<4>(n, m); break;
+    case 2: sw = slice_width<2>(n, m); break;
+    default: sw = slice_width<1>(n, m); break;
+  }
+  return size_t(STAGES) * KS * sw + 2 * size_t(r4(n * G)) + 2 * size_t(r4(m * G)) +
+         2 * size_t(r4(m * (G + 1))) +
+         12 * size_t(G) + size_t(NQ) * G * NW;
+}
+
 size_t smem_elems(int G, int n, int m, bool tf32) {
   const size_t per_lane = 4 * size_t(n) + 6 * size_t(m) + (tf32 ? size_t(n + m) : 0) + 8 + 4;
   return G * per_lane + size_t(NQ) * G * NW;
@@ -586,8 +1331,33 @@ cudaError_t dispatch_group(const LegArgs<T>& a, int G, cudaStream_t s) {
   }
 }
 
+template <typename T, int G>
+cudaError_t launch_tiled(const LegArgs<T>& a, cudaStream_t stream) {
+  const size_t bytes = MBAR_BYTES + tiled_smem_elems(G, a.n, a.m) * sizeof(T);
+  auto kern = tiled_leg_kernel<T, G>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (e != cudaSuccess) return e;
+  const int groups = (a.B + G - 1) / G;
+  kern<<<groups, NT, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T>
-LegArgs<T> make_args(const void* rinv, const void* rat, const void* P,
+cudaError_t dispatch_tiled(const LegArgs<T>& a, int G, cudaStream_t s) {
+  switch (G) {
+    case 32: return launch_tiled<T, 32>(a, s);
+    case 16: return launch_tiled<T, 16>(a, s);
+    case 8: return launch_tiled<T, 8>(a, s);
+    case 4: return launch_tiled<T, 4>(a, s);
+    case 2: return launch_tiled<T, 2>(a, s);
+    case 1: return launch_tiled<T, 1>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+LegArgs<T> make_args(const void* rinv, const void* rat, const void* op, const void* P,
                      const void* A, const void* At, const void* rho,
                      const void* rho_inv, const void* einv, const void* dinv,
                      const void* d_raw, const void* e_raw, const void* einv_raw,
@@ -598,6 +1368,7 @@ LegArgs<T> make_args(const void* rinv, const void* rat, const void* P,
   LegArgs<T> a;
   a.rinv = static_cast<const T*>(rinv);
   a.rat = static_cast<const T*>(rat);
+  a.op = static_cast<const T*>(op);
   a.P = static_cast<const T*>(P);
   a.A = static_cast<const T*>(A);
   a.At = static_cast<const T*>(At);
@@ -630,41 +1401,48 @@ LegArgs<T> make_args(const void* rinv, const void* rat, const void* P,
 extern "C" {
 
 // Launch one leg on `stream`; returns the cudaError_t of the launch (0 = ok).
+// tiled = 1 runs the tiled route on op = [rinv | rat] (float32 or float64);
+// tiled = 0 runs the simple route, built for float64 and for tf32.
 int osqp_admm_solve_shared(
-    int is_f64, int tf32, const void* rinv, const void* rat, const void* P,
-    const void* A, const void* At, const void* rho, const void* rho_inv,
-    const void* einv, const void* dinv, const void* d_raw, const void* e_raw,
-    const void* einv_raw, const void* dinv_raw, const void* q, const void* l,
-    const void* u, const void* x0, const void* y0, const void* z0,
-    const void* status0, void* x, void* y, void* z, void* xp, void* yp,
-    void* stats, int B, int n, int m, int G, int live_groups, double sigma,
-    double alpha, int max_iter, int check_every, double eps_abs,
-    double eps_rel, double cinv, double eps_pinf, double eps_dinf,
-    double cinv_raw, int it0, void* stream) {
+    int is_f64, int tf32, int tiled, const void* rinv, const void* rat,
+    const void* op, const void* P, const void* A, const void* At,
+    const void* rho, const void* rho_inv, const void* einv, const void* dinv,
+    const void* d_raw, const void* e_raw, const void* einv_raw,
+    const void* dinv_raw, const void* q, const void* l, const void* u,
+    const void* x0, const void* y0, const void* z0, const void* status0,
+    void* x, void* y, void* z, void* xp, void* yp, void* stats, int B, int n,
+    int m, int G, int live_groups, double sigma, double alpha, int max_iter,
+    int check_every, double eps_abs, double eps_rel, double cinv,
+    double eps_pinf, double eps_dinf, double cinv_raw, int it0, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiled && tf32) return int(cudaErrorInvalidValue);
   if (is_f64) {
     if (tf32) return int(cudaErrorInvalidValue);
     LegArgs<double> a = make_args<double>(
-        rinv, rat, P, A, At, rho, rho_inv, einv, dinv, d_raw, e_raw, einv_raw,
-        dinv_raw, q, l, u, x0, y0, z0, status0, x, y, z, xp, yp, stats);
+        rinv, rat, op, P, A, At, rho, rho_inv, einv, dinv, d_raw, e_raw,
+        einv_raw, dinv_raw, q, l, u, x0, y0, z0, status0, x, y, z, xp, yp,
+        stats);
     a.B = B; a.n = n; a.m = m; a.live_groups = live_groups;
     a.max_iter = max_iter; a.check_every = check_every; a.it0 = it0;
     a.sigma = sigma; a.alpha = alpha; a.eps_abs = eps_abs; a.eps_rel = eps_rel;
     a.cinv = cinv; a.eps_pinf = eps_pinf; a.eps_dinf = eps_dinf;
     a.cinv_raw = cinv_raw;
+    if (tiled) return int(dispatch_tiled<double>(a, G, s));
     return int(dispatch_group<double, false>(a, G, s));
   }
   LegArgs<float> a = make_args<float>(
-      rinv, rat, P, A, At, rho, rho_inv, einv, dinv, d_raw, e_raw, einv_raw,
-      dinv_raw, q, l, u, x0, y0, z0, status0, x, y, z, xp, yp, stats);
+      rinv, rat, op, P, A, At, rho, rho_inv, einv, dinv, d_raw, e_raw,
+      einv_raw, dinv_raw, q, l, u, x0, y0, z0, status0, x, y, z, xp, yp,
+      stats);
   a.B = B; a.n = n; a.m = m; a.live_groups = live_groups;
   a.max_iter = max_iter; a.check_every = check_every; a.it0 = it0;
   a.sigma = float(sigma); a.alpha = float(alpha); a.eps_abs = float(eps_abs);
   a.eps_rel = float(eps_rel); a.cinv = float(cinv);
   a.eps_pinf = float(eps_pinf); a.eps_dinf = float(eps_dinf);
   a.cinv_raw = float(cinv_raw);
+  if (tiled) return int(dispatch_tiled<float>(a, G, s));
   if (tf32) return int(dispatch_group<float, true>(a, G, s));
-  return int(dispatch_group<float, false>(a, G, s));
+  return int(cudaErrorInvalidValue);  // float32 runs the tiled route
 }
 
 const char* osqp_cuda_error_string(int err) {

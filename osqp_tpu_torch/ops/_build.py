@@ -91,7 +91,7 @@ def load_library() -> ctypes.CDLL:
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     f = lib.osqp_admm_solve_shared
     f.restype = i
-    f.argtypes = ([i, i] + [vp] * 26 + [i] * 5 + [d, d, i, i]
+    f.argtypes = ([i, i, i] + [vp] * 27 + [i] * 5 + [d, d, i, i]
                   + [d] * 6 + [i, vp])
     f = lib.osqp_admm_iterate_shared
     f.restype = i

@@ -17,6 +17,12 @@ body, which takes the same steps in the same order:
 
 Lanes are independent, so the group size changes nothing numerically; it
 only sets the granularity of ``live_groups`` (lane compaction).
+
+The kernel has two routes (see the CUDA source's note): float32 runs the
+tiled route, which multiplies a group of lanes with register-tiled FMAs
+against operator slices staged by TMA, the iteration operator being
+:func:`leg_operator`; tf32 and float64 run the simple route. The tiled
+route is also built in float64, for the card tests.
 """
 
 from __future__ import annotations
@@ -39,8 +45,21 @@ _DIV_GUARD = 1e-10
 #: (``NT`` and ``NQ`` in csrc/solve_kernel.cu).
 _NT = 256
 _NQ = 15
-#: Group sizes the CUDA kernel is instantiated for.
+#: The tiled route's operator rows per staged slice, slices in its ring,
+#: and column chunks of four per thread in the (n+m)-wide product (``KS``,
+#: ``STAGES``, ``RC_WIDE`` in csrc/solve_kernel.cu).
+_KS = 16
+_STAGES = 2
+_RC_WIDE = 3
+#: Bytes ahead of the ring that hold the mbarriers (``MBAR_BYTES``).
+_MBAR_BYTES = 64
+#: Group sizes the simple route (tf32, float64) is instantiated for.
 GROUPS = (16, 8, 4, 2, 1)
+#: Group sizes the tiled route (float32; float64 for the card tests) is
+#: instantiated for.
+GROUPS_TILED = (32, 16, 8, 4, 2, 1)
+#: The tiled rule wants at least this many blocks: 7/8 of the H100's SMs.
+_MIN_BLOCKS_TILED = _hopper.NUM_SMS - _hopper.NUM_SMS // 8
 
 
 class LegScalars(NamedTuple):
@@ -59,29 +78,102 @@ class LegScalars(NamedTuple):
     it0: int          # global iteration offset of this leg
 
 
-def smem_bytes(G, n, m, itemsize, tf32=False):
-    """Dynamic shared memory of one CUDA block: the iterate state
-    x, x_prev, q, rhs (n each) and t, t_prev, z, l, u, w (m each) per lane,
-    the tf32 lo halves of rhs and w, packed stats and per-lane scalars,
-    and the cross-warp reduction slots. Mirrors ``smem_elems`` in the
-    CUDA source."""
+def tiled_route(dtype, tf32=False):
+    """Whether a leg in ``dtype`` runs the tiled route: float32 without the
+    tf32 split products. tf32 and float64 run the simple route."""
+    return dtype == torch.float32 and not tf32
+
+
+def _r4(v):
+    return -(-v // 4) * 4
+
+
+def tiled_smem_bytes(G, n, m, itemsize):
+    """Dynamic shared memory of one block of the tiled route: the mbarriers
+    of the ring and of l and u, the ring of operator slices (``_STAGES``
+    slices of ``_KS`` rows, each as wide as the widest product's pass), the
+    k-major lane state x, rhs (n each) and w (m, which also takes l), u
+    (m), z and t (m each, rows padded to G+1), each rounded up to four
+    values, packed stats, per-lane scalars and the reduction slots. Mirrors
+    ``tiled_smem_elems`` in the CUDA source."""
+    tm = G // 8 if G >= 8 else 1             # lanes per thread
+    ct = _NT * tm // G                       # threads along the columns
+    width = min(4 * _RC_WIDE * ct, _r4(n + m))
+    elems = (_STAGES * _KS * width + 2 * _r4(n * G) + 2 * _r4(m * G)
+             + 2 * _r4(m * (G + 1)) + 12 * G + _NQ * G * (_NT // 32))
+    return _MBAR_BYTES + elems * itemsize
+
+
+def simple_smem_bytes(G, n, m, itemsize, tf32=False):
+    """Dynamic shared memory of one block of the simple route: the iterate
+    state x, x_prev, q, rhs (n each) and t, t_prev, z, l, u, w (m each) per
+    lane, the tf32 lo halves of rhs and w, packed stats and per-lane
+    scalars, and the cross-warp reduction slots. Mirrors ``smem_elems`` in
+    the CUDA source."""
     per_lane = 4 * n + 6 * m + (n + m if tf32 else 0) + 8 + 4
     return (G * per_lane + _NQ * G * (_NT // 32)) * itemsize
 
 
-def pick_group(B, n, m, itemsize, tf32=False):
-    """Hopper group rule: the largest G whose block leaves room for a
-    second block on its SM and that still gives at least one block per
-    SM; the smallest G that fits when the batch cannot fill the card.
+def smem_bytes(G, n, m, itemsize, tf32=False):
+    """Dynamic shared memory of one block of the route that a leg of this
+    item size and tf32 setting runs."""
+    if itemsize == 4 and not tf32:
+        return tiled_smem_bytes(G, n, m, itemsize)
+    return simple_smem_bytes(G, n, m, itemsize, tf32)
 
-    The kernel is bound by the latency of its operator and shared-memory
-    loads, so a second resident block (more warps to switch between) pays
-    more than the operator reuse a larger G buys: at B=4096, n=128, m=256
-    on an H100 this picks G=8 in float32 and tf32 and G=4 in float64, the
-    fastest of the sizes measured (PERF.md)."""
-    return _hopper.pick_group(
-        B, GROUPS, lambda G: smem_bytes(G, n, m, itemsize, tf32),
-        f"leg kernel at n={n}, m={m}")
+
+def pick_group_tiled(B, n, m, itemsize):
+    """Group rule of the tiled route: the largest G whose block fits and
+    that still gives at least 7/8 of the card's SMs a block; the smallest G
+    that fits when the batch cannot.
+
+    The tiled route runs one block per SM and hides latency with its copy
+    ring and each thread's independent accumulators, not with resident
+    warps, so a larger G pays: each operator slice read from L2 serves G
+    lanes, and a block's fixed work per slice is shared by more lanes. At
+    B=4096, n=128, m=256 in float32 it picks G=32 (128 blocks): on an
+    NVIDIA H100 80GB HBM3 at 700 W a 100-iteration leg took 4.24 ms at
+    G=32, 5.35 ms at G=16 and 7.77 ms at G=8 (``chip_smoke.py``, phase 3)."""
+    fits = [G for G in GROUPS_TILED
+            if tiled_smem_bytes(G, n, m, itemsize) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"one lane of the leg kernel at n={n}, m={m} needs "
+            f"{tiled_smem_bytes(1, n, m, itemsize)} bytes of shared memory, "
+            f"more than the {SMEM_LIMIT} a block may use")
+    for G in fits:
+        if -(-B // G) >= _MIN_BLOCKS_TILED:
+            return G
+    return fits[-1]
+
+
+def pick_group(B, n, m, itemsize, tf32=False):
+    """Group size of a leg: float32 takes the tiled route's rule
+    (:func:`pick_group_tiled`); tf32 and float64 the simple route's Hopper
+    rule, the largest G whose block leaves room for a second block on its
+    SM and that still gives at least one block per SM (the smallest G that
+    fits when the batch cannot fill the card).
+
+    The simple route is bound by the latency of its operator and
+    shared-memory loads, so a second resident block pays more than the
+    operator reuse a larger G buys: at B=4096, n=128, m=256 on an H100 it
+    picks G=8 in tf32 and G=4 in float64 (PERF.md). Under tf32 the legs
+    after the noise plateau run float32 at the same G on the tiled route,
+    so the tf32 rule takes the larger of the two routes' blocks."""
+    if itemsize == 4 and not tf32:
+        return pick_group_tiled(B, n, m, itemsize)
+
+    def smem_of(G):
+        b = simple_smem_bytes(G, n, m, itemsize, tf32)
+        return max(b, tiled_smem_bytes(G, n, m, itemsize)) if tf32 else b
+    return _hopper.pick_group(B, GROUPS, smem_of,
+                              f"leg kernel at n={n}, m={m}")
+
+
+def leg_operator(Rinv_a, RAt_a):
+    """The tiled route's iteration operator [αR⁻¹ | αR⁻¹Aᵀ], (n, n+m) and
+    row-major: x̃ and z̃ of a lane come from one product with it."""
+    return torch.cat([Rinv_a, RAt_a], dim=1).contiguous()
 
 
 def _rowmax(M):
@@ -245,9 +337,11 @@ def admm_solve_shared_reference(Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv,
 def _cuda_leg(Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv, Dinv, D_r, E_r,
               Einv_r, Dinv_r, q, lb, ub, x0, y0, z0, status0,
               sc: LegScalars, live_groups: int, group: int,
-              tf32: bool = False):
+              tf32: bool = False, tiled: bool | None = None):
     """Launch the Hopper leg kernel on the current stream. Same inputs and
-    outputs as :func:`admm_solve_shared_reference`."""
+    outputs as :func:`admm_solve_shared_reference`. ``tiled`` picks the
+    route; by default :func:`tiled_route` of the dtype (the card tests also
+    run the tiled route in float64)."""
     from ._build import check_launch, load_library
 
     B, n = x0.shape
@@ -257,9 +351,18 @@ def _cuda_leg(Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv, Dinv, D_r, E_r,
         raise TypeError(f"leg kernel takes float32 or float64, not {dt}")
     if tf32 and dt != torch.float32:
         raise TypeError("the tf32 leg needs float32 tensors")
-    if group not in GROUPS:
-        raise ValueError(f"group {group} not in {GROUPS}")
-    if smem_bytes(group, n, m, x0.element_size(), tf32) > SMEM_LIMIT:
+    if tiled is None:
+        tiled = tiled_route(dt, tf32)
+    if tiled and tf32:
+        raise TypeError("the tf32 leg runs the simple route, not the tiled")
+    if not tiled and dt == torch.float32 and not tf32:
+        raise TypeError("float32 legs run the tiled route")
+    groups = GROUPS_TILED if tiled else GROUPS
+    if group not in groups:
+        raise ValueError(f"group {group} not in {groups}")
+    smem = (tiled_smem_bytes(group, n, m, x0.element_size()) if tiled else
+            simple_smem_bytes(group, n, m, x0.element_size(), tf32))
+    if smem > SMEM_LIMIT:
         raise ValueError(f"group {group} does not fit shared memory at "
                          f"n={n}, m={m}")
     floats = [Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv, Dinv, D_r, E_r,
@@ -279,6 +382,7 @@ def _cuda_leg(Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv, Dinv, D_r, E_r,
             raise ValueError(f"leg kernel input {k} is on {tsr.device}, "
                              f"not on a CUDA device")
     floats = [tsr.contiguous() for tsr in floats]
+    op = leg_operator(floats[0], floats[1]) if tiled else None
     st0 = status0.to(device=x0.device, dtype=torch.int32).contiguous()
     outs = [torch.empty((B, n), dtype=dt, device=x0.device),
             torch.empty((B, m), dtype=dt, device=x0.device),
@@ -289,8 +393,10 @@ def _cuda_leg(Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv, Dinv, D_r, E_r,
     lib = load_library()
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     ptr = [ctypes.c_void_p(tsr.data_ptr()) for tsr in floats + [st0] + outs]
+    op_ptr = ctypes.c_void_p(op.data_ptr() if tiled else None)
     err = lib.osqp_admm_solve_shared(
-        1 if dt == torch.float64 else 0, 1 if tf32 else 0, *ptr,
+        1 if dt == torch.float64 else 0, 1 if tf32 else 0, 1 if tiled else 0,
+        ptr[0], ptr[1], op_ptr, *ptr[2:],
         B, n, m, group, int(live_groups),
         sc.sigma, sc.alpha, sc.max_iter, sc.check_every, sc.eps_abs,
         sc.eps_rel, sc.cinv, sc.eps_pinf, sc.eps_dinf, sc.cinv_raw, sc.it0,
@@ -347,9 +453,9 @@ def admm_solve_shared(Rinv, P, A, rho_vec, rho_inv, Einv, Dinv, cinv,
         eps_rel=f(eps_rel), cinv=f(cinv), eps_pinf=f(eps_pinf),
         eps_dinf=f(eps_dinf), cinv_raw=f(cinv_r), it0=int(it0))
     # α folded into both operators, outside the kernel, at full precision
-    alpha_c = torch.tensor(sc.alpha, dtype=dt, device=dev)
-    RAt = alpha_c * (Rinv @ A.T)
-    Rinv_a = alpha_c * Rinv
+    # (a Python scalar, so that no host-to-device copy waits on the stream)
+    RAt = (Rinv @ A.T) * sc.alpha
+    Rinv_a = Rinv * sc.alpha
     leg = _cuda_leg if x.is_cuda else admm_solve_shared_reference
     x_o, y_o, z_o, xp_o, yp_o, stats = leg(
         Rinv_a, RAt, P, A, A.T, rho_vec, rho_inv, Einv, Dinv, D_r, E_r,

@@ -7,10 +7,12 @@ On a machine with a card run
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` (the suite's
 conftest imports jax, which the port does not need).
 
-Both sides get the same inputs on the same device. Leg kernel, float64:
-statuses and iteration counts identical, floats within rtol 1e-9 (the
-kernel sums in another order than cuBLAS); float32 and tf32: statuses
-identical. The iteration and fused kernels: each test states its
+Both sides get the same inputs on the same device. Leg kernel, float64
+(both routes: the simple one float64 runs, and the tiled one float32 runs,
+instantiated in float64 too): statuses and iteration counts identical,
+floats within rtol 1e-9, atol 1e-12 (the kernel sums in another order than
+cuBLAS); float32 and tf32: statuses identical, x within rtol 1e-3, atol
+1e-4. The iteration and fused kernels: each test states its
 tolerance. Solves in float64: statuses and iteration counts identical.
 """
 
@@ -38,6 +40,8 @@ def dev():
 
 def _leg_args(dev, dtype, B=40, n=12, m=20, seed=0, nan_lane=False,
               infeasible=False):
+    """One leg's folded inputs; n, m and B need not be multiples of any
+    tile (the tiled route masks every edge)."""
     rng = np.random.RandomState(seed)
     M = rng.randn(n, n) / np.sqrt(n)
     P = M.T @ M + 0.1 * np.eye(n)
@@ -71,19 +75,22 @@ def _leg_args(dev, dtype, B=40, n=12, m=20, seed=0, nan_lane=False,
     return ops, sc
 
 
-def _both(ops, sc, G, tf32=False, live_groups=None):
+def _both(ops, sc, G, tf32=False, live_groups=None, tiled=None):
     B = ops[13].shape[0]
     lg = -(-B // G) if live_groups is None else live_groups
-    k = SK._cuda_leg(*ops, sc, lg, G, tf32)
+    k = SK._cuda_leg(*ops, sc, lg, G, tf32, tiled)
     p = SK.admm_solve_shared_reference(*ops, sc, lg, G, tf32)
     torch.cuda.synchronize()
     return [v.cpu().numpy() for v in k], [v.cpu().numpy() for v in p]
 
 
-@pytest.mark.parametrize("G", [1, 8, 16])
-def test_kernel_matches_plain_f64(dev, G):
+@pytest.mark.parametrize("tiled,G", [
+    (False, 1), (False, 8), (False, 16), (True, 1), (True, 8), (True, 32)],
+    ids=["simple-1", "simple-8", "simple-16", "tiled-1", "tiled-8",
+         "tiled-32"])
+def test_kernel_matches_plain_f64(dev, tiled, G):
     ops, sc = _leg_args(dev, torch.float64, infeasible=True, nan_lane=True)
-    k, p = _both(ops, sc, G)
+    k, p = _both(ops, sc, G, tiled=tiled)
     np.testing.assert_array_equal(k[5][:, :2], p[5][:, :2])
     assert (k[5][:, 0] == C.SOLVED).any()
     assert (k[5][:5, 0] == C.PRIMAL_INFEASIBLE).all()
@@ -101,10 +108,37 @@ def test_kernel_live_groups_and_offset_f64(dev):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
 
 
+@pytest.mark.parametrize("check_every", [25, 0])
+def test_tiled_kernel_live_groups_and_offset_f64(dev, check_every):
+    """The tiled route with it0 > 0, the last two groups skipped, and with
+    or without checks: skipped lanes come back as they went in."""
+    ops, sc = _leg_args(dev, torch.float64, seed=1)
+    sc = sc._replace(it0=10, max_iter=90, check_every=check_every)
+    k, p = _both(ops, sc, 8, live_groups=3, tiled=True)
+    np.testing.assert_array_equal(k[5][:, :2], p[5][:, :2])
+    for a, b in zip(k[:5], p[:5]):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
+    np.testing.assert_array_equal(k[0][24:], ops[16][24:].cpu().numpy())
+    if check_every == 0:
+        assert (k[5][:24, 0] == C.RUNNING).all()
+        assert (k[5][:24, 1] == 100).all()
+
+
 @pytest.mark.parametrize("tf32", [False, True], ids=["f32", "tf32"])
 def test_kernel_matches_plain_f32(dev, tf32):
     ops, sc = _leg_args(dev, torch.float32, seed=2)
     k, p = _both(ops, sc, 16, tf32=tf32)
+    np.testing.assert_array_equal(k[5][:, 0], p[5][:, 0])
+    np.testing.assert_allclose(k[0], p[0], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("G", [32, 16, 4])
+def test_tiled_kernel_ragged_f32(dev, G):
+    """B=70, n=13, m=21: no dimension is a multiple of the tile, the rows
+    of A, P, A^T and of the (n, n+m) operator are not 16-byte aligned
+    (element copies), and the last group is ragged."""
+    ops, sc = _leg_args(dev, torch.float32, B=70, n=13, m=21, seed=2)
+    k, p = _both(ops, sc, G)
     np.testing.assert_array_equal(k[5][:, 0], p[5][:, 0])
     np.testing.assert_allclose(k[0], p[0], rtol=1e-3, atol=1e-4)
 

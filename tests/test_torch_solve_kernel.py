@@ -22,6 +22,8 @@ from osqp_tpu.ops.shared_iter import dot3 as jdot3, split_bf16 as jsplit
 from osqp_tpu.ops.solve_kernel import admm_solve_shared as jax_leg
 from osqp_tpu_torch.ops import solve_kernel as SK
 from osqp_tpu_torch.ops.shared_iter import dot3, split_bf16
+from osqp_tpu_torch.tools import leg_ablation as LA
+from osqp_tpu_torch.tools import trace_solve
 
 NAMES = ("x", "y", "z", "x_prev", "y_prev", "status", "iters", "pri_res",
          "dua_res", "pri_norm", "dua_norm")
@@ -199,16 +201,85 @@ def test_dot3_bit_for_bit():
 
 
 @pytest.mark.parametrize("B,n,m,itemsize,tf32,G", [
-    (4096, 128, 256, 4, False, 8),
+    (4096, 128, 256, 4, False, 32),
     (4096, 128, 256, 8, False, 4),
     (4096, 128, 256, 4, True, 8),
-    (65536, 64, 128, 4, False, 16),
-    (256, 128, 256, 4, False, 1),
+    (65536, 64, 128, 4, False, 32),
+    (256, 128, 256, 4, False, 2),
     (8, 8, 16, 8, False, 1),
 ])
 def test_pick_group_hopper_rule(B, n, m, itemsize, tf32, G):
+    """float32 takes the tiled rule (the largest G that fits and gives
+    at least 7/8 of the SMs a block); tf32 and float64 the simple route's."""
     assert SK.pick_group(B, n, m, itemsize, tf32) == G
     assert SK.smem_bytes(G, n, m, itemsize, tf32) <= SK.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("itemsize,G", [(4, 32), (8, 8)])
+def test_tiled_route_fits_at_its_group(itemsize, G):
+    """At the bench shape the tiled block fits one SM at the group its rule
+    picks (float32: 232,000 bytes), and the next larger group does not."""
+    assert SK.pick_group_tiled(4096, 128, 256, itemsize) == G
+    assert SK.tiled_smem_bytes(G, 128, 256, itemsize) <= SK.SMEM_LIMIT
+    if G < max(SK.GROUPS_TILED):
+        assert SK.tiled_smem_bytes(2 * G, 128, 256, itemsize) > SK.SMEM_LIMIT
+    assert SK.tiled_smem_bytes(32, 128, 256, 4) == 232000
+
+
+def test_tf32_rule_leaves_room_for_the_float32_legs():
+    """Under tf32 the legs after the noise plateau run float32 on the tiled
+    route at the tf32 group, so that group has to fit both routes."""
+    for B, n, m in ((4096, 128, 256), (65536, 64, 128), (300, 16, 24)):
+        G = SK.pick_group(B, n, m, 4, tf32=True)
+        assert G in SK.GROUPS and G in SK.GROUPS_TILED
+        assert SK.tiled_smem_bytes(G, n, m, 4) <= SK.SMEM_LIMIT
+        assert SK.simple_smem_bytes(G, n, m, 4, True) <= SK.SMEM_LIMIT
+
+
+def test_leg_operator_concatenates_folded_operators():
+    """The tiled route's one operator is [αR⁻¹ | αR⁻¹Aᵀ], row-major."""
+    d = _leg_inputs(n=6, m=9, seed=14)
+    Rinv = torch.as_tensor(_rinv(d))
+    A = torch.as_tensor(d["A"])
+    Rinv_a, RAt_a = 1.6 * Rinv, 1.6 * (Rinv @ A.T)
+    op = SK.leg_operator(Rinv_a, RAt_a)
+    assert op.shape == (6, 15) and op.is_contiguous()
+    assert torch.equal(op[:, :6], Rinv_a) and torch.equal(op[:, 6:], RAt_a)
+    # one row of the operator gives both halves of a lane's product
+    rhs = torch.as_tensor(np.random.RandomState(15).randn(3, 6))
+    torch.testing.assert_close(rhs @ op, torch.cat([rhs @ Rinv_a,
+                                                    rhs @ RAt_a], dim=1),
+                               rtol=1e-14, atol=1e-14)
+
+
+@pytest.mark.parametrize("name", [name for name, _ in LA.ABLATIONS])
+def test_leg_ablation_matches_kernel_source(name):
+    """Each ablation of the measurement tool finds its text in the kernel
+    source, and its copy keeps only the float32 tiled kernel at G=32."""
+    edits = dict(LA.ABLATIONS)[name]
+    src = LA.variant_source(edits)
+    assert "case 32: return launch_tiled<T, 32>(a, s);" in src
+    assert "launch_tiled<T, 16>" not in src
+    assert "dispatch_group<double, false>(a, G, s)" not in src
+    for _, new in edits:
+        assert new in src
+
+
+@pytest.mark.parametrize("tool", [LA, trace_solve],
+                         ids=["leg_ablation", "trace_solve"])
+def test_measurement_tools_refuse_without_gpu(tool, capsys):
+    """The card measurements exit non-zero, and print no result, where
+    there is no GPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    assert tool.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_routes_by_dtype():
+    assert SK.tiled_route(torch.float32)
+    assert not SK.tiled_route(torch.float32, tf32=True)
+    assert not SK.tiled_route(torch.float64)
 
 
 def test_pick_group_refuses_oversized_lane():
@@ -252,6 +323,13 @@ def test_cuda_launcher_validates_before_launch():
         SK._cuda_leg(*bad, st0, sc, 2, 4)
     with pytest.raises(TypeError, match="tf32"):
         SK._cuda_leg(*ops, st0, sc, 2, 4, True)
+    with pytest.raises(ValueError, match="group 32 not in"):
+        SK._cuda_leg(*ops, st0, sc, 2, 32)    # the simple route stops at 16
+    ops32 = [o.float() for o in ops]
+    with pytest.raises(TypeError, match="tiled route"):
+        SK._cuda_leg(*ops32, st0, sc, 2, 4, False, False)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        SK._cuda_leg(*ops32, st0, sc, 2, 32)
 
 
 def test_plain_twin_on_folded_inputs_matches_wrapper():
