@@ -27,10 +27,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    numpy, and prints the split of bf16 and full-precision chunks;
 7. builds B=4096 QPs with n=128, m=256 in which every lane has its own P and
    A (the bench generator, one matrix draw per lane), holds the fused kernel
-   (csrc/fused_iter.cu) against its twin for one 25-iteration chunk, then
-   drives the per-lane path — BatchedSolver(kkt_mode="fused").solve cold —
-   checks every lane Solved, statuses equal to kkt_mode="inverse" on the
-   same data, and 64 lanes in float64 numpy;
+   (csrc/fused_iter.cu) against its twin for one 25-iteration chunk on
+   each float32 route that takes the shape (the default, A in registers;
+   and both operators staged in shared memory), prints each route's
+   threads, shared memory per block and the compiler's registers and
+   spills, and times both beside the bound and each design's floor (its
+   FMA issue or shared-memory reads, whichever is longer, plus the operator
+   copy at the memory rate); then drives
+   the per-lane path — BatchedSolver(kkt_mode="fused").solve cold — checks
+   every lane Solved, statuses equal to kkt_mode="inverse" on the same
+   data, and 64 lanes in float64 numpy;
 8. prints one JSON line of the three kernels (launch counts of their own
    paths, agreement with the twins, times, and the least time the card
    could take for the same work), the nvidia-smi line, and last the device
@@ -62,6 +68,11 @@ K_CHUNK = 25
 #: H100 SXM peaks (NVIDIA's data sheet, dense): float32 outside the tensor
 #: cores, bf16 in them, and the device memory rate.
 PEAK_F32, PEAK_BF16, MEM_RATE = 67e12, 989e12, 3.35e12
+#: What the fused kernel's designs can reach on an H100 SXM: 132 SMs, each
+#: reading 128 bytes of shared memory and issuing 128 float32 FMAs a clock,
+#: at the clock that the float32 peak implies (1.98 GHz).
+NUM_SMS, SMEM_RATE, FMA_RATE = 132, 128, 128
+SM_CLOCK = PEAK_F32 / (2 * NUM_SMS * FMA_RATE)
 
 
 def make_batch(B, n, m, seed=0):
@@ -565,28 +576,66 @@ def main():
             return mock.patch.object(FI, "_cuda_iterate",
                                      FI.admm_iterate_reference)
 
-        k = FI.admm_iterate(*f_args)
+        real_fused = FI._cuda_iterate
+
+        def fused_route(route):
+            return mock.patch.object(FI, "_cuda_iterate", functools.partial(
+                real_fused, route=route))
+
+        route = FI.pick_route(N, M, 4)
+        require(route == "registers",
+                f"[7] the main shape takes the {route} route")
         with plain_fused():
             p = FI.admm_iterate(*f_args)
-        torch.cuda.synchronize()
         scale = max(1.0, max(float(v.abs().max()) for v in p))
-        fused_err = max(float((a - b).abs().max()) for a, b in zip(k, p))
-        say(f"[7] fused chunk B={B_MAIN} K={K_CHUNK} f32 (operators staged: "
-            f"{FI.staged_fits(N, M, 4)}): max |kernel - plain| {fused_err:.3e}"
-            f" (scale {scale:.2f}, tolerance 1e-4 of it)")
-        require(fused_err <= 1e-4 * scale,
-                f"[7] fused kernel differs by {fused_err}")
-        fused_ms = cuda_ms(torch, lambda: FI.admm_iterate(*f_args), 5)
-        with plain_fused():
-            fused_plain_ms = cuda_ms(torch, lambda: FI.admm_iterate(*f_args),
-                                     3)
         fused_flops = 2.0 * (2 * M * N + N * N) * B_MAIN * K_CHUNK
         fused_bytes = 4 * B_MAIN * (N * N + M * N + 4 * N + 9 * M)
         fused_bound, fused_by = bound(fused_flops, fused_bytes, PEAK_F32)
-        say(f"[7] fused: kernel {fused_ms:.3f} ms, plain twin "
-            f"{fused_plain_ms:.3f} ms, bound {fused_bound:.4f} ms "
+        # each design's floor: a block per problem, one per SM, so
+        # ceil(B / 132) waves, each first copying its operators from device
+        # memory; an iteration's FMAs, or its shared-memory reads (staged:
+        # A twice and R^-1 once; registers: R^-1 once), whichever is longer
+        waves = -(-B_MAIN // NUM_SMS)
+        copy_ms = 4 * B_MAIN * (M * N + N * N) / MEM_RATE * 1e3
+        fma_clocks = (2 * M * N + N * N) / FMA_RATE
+        floor_ms = {
+            r: copy_ms + waves * K_CHUNK * max(
+                fma_clocks, 4 * reads / SMEM_RATE) / SM_CLOCK * 1e3
+            for r, reads in (("registers", N * N),
+                             ("staged", 2 * M * N + N * N))}
+        kernel_of = {"registers": "regs_kernel",
+                     "staged": "staged_kernelIfLi1E"}
+        threads = {"registers": FI._NT_REG, "staged": FI._NT}
+        fused_ms = {}
+        for r in ("registers", "staged"):
+            with fused_route(r):
+                k = FI.admm_iterate(*f_args)
+                torch.cuda.synchronize()
+                err = max(float((a - b).abs().max()) for a, b in zip(k, p))
+                require(err <= 1e-4 * scale,
+                        f"[7] fused kernel, {r} route, differs by {err}")
+                fused_ms[r] = cuda_ms(torch,
+                                      lambda: FI.admm_iterate(*f_args), 5)
+            if r == route:
+                fused_err = err
+            say(f"[7] fused chunk B={B_MAIN} K={K_CHUNK} f32, {r} route"
+                f"{' (the default)' if r == route else ''}: max |kernel - "
+                f"plain| {err:.3e} (scale {scale:.2f}, tolerance 1e-4 of "
+                f"it); {threads[r]} threads, "
+                f"{FI.smem_bytes(N, M, 4, r)} bytes of shared memory a "
+                f"block (rows {FI.staged_ld(N, 4)} values apart), one "
+                f"block per problem; ptxas: "
+                f"{ptxas_usage(log, kernel_of[r])}; kernel "
+                f"{fused_ms[r]:.3f} ms, design's floor "
+                f"{floor_ms[r]:.3f} ms")
+        with plain_fused():
+            fused_plain_ms = cuda_ms(torch, lambda: FI.admm_iterate(*f_args),
+                                     3)
+        say(f"[7] fused, {route} route: kernel {fused_ms[route]:.3f} ms, "
+            f"plain twin {fused_plain_ms:.3f} ms, bound {fused_bound:.4f} ms "
             f"({fused_by}: {fused_flops / 1e9:.2f} GFLOP, "
-            f"{fused_bytes / 1e6:.0f} MB)")
+            f"{fused_bytes / 1e6:.0f} MB); the floors include "
+            f"{copy_ms:.3f} ms of operator copy in {waves} waves")
         del sd, Rinv_b, f_args, k, p
 
     lane_settings = Settings(eps_abs=EPS, eps_rel=EPS, verbose=False,
@@ -636,8 +685,9 @@ def main():
         dict(name="admm_iterate", source="fused_iter.cu",
              replaces="osqp_tpu/ops/fused_iter.py:30",
              launches=path7["admm_iterate"], max_abs_err=fused_err,
-             ms=fused_ms, plain_ms=fused_plain_ms, bound_ms=fused_bound,
-             bound_by=fused_by),
+             ms=fused_ms[route], plain_ms=fused_plain_ms,
+             bound_ms=fused_bound, bound_by=fused_by, variant=route,
+             staged_ms=fused_ms["staged"]),
     ]
     for r in rows:
         # no single PyTorch call computes K ADMM iterations

@@ -22,6 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / f for f in
                  ("solve_kernel.cu", "shared_iter.cu", "fused_iter.cu"))
+_HEADERS = (_PKG / "csrc" / "fused_layout.h",)
 BUILD_DIR = _PKG / ".build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -40,7 +41,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
     return BUILD_DIR / f"osqp_kernels-{h.hexdigest()[:16]}.so"
@@ -99,6 +100,9 @@ def load_library() -> ctypes.CDLL:
     f = lib.osqp_admm_iterate
     f.restype = i
     f.argtypes = [i, i] + [vp] * 15 + [i] * 4 + [d, d, vp]
+    f = lib.osqp_admm_iterate_smem_bytes
+    f.restype = ctypes.c_longlong
+    f.argtypes = [i, i, i, i]
     lib.osqp_cuda_error_string.restype = ctypes.c_char_p
     lib.osqp_cuda_error_string.argtypes = [i]
     return lib

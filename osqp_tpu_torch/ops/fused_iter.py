@@ -24,23 +24,90 @@ import torch
 from ..linalg import with_precision
 from ._hopper import SMEM_LIMIT
 
-#: Threads per block of the CUDA kernel (``NT`` in csrc/fused_iter.cu).
+#: Threads per block, columns per pass of the column products, passes and
+#: rows per thread of the staged route, and the room of its mbarriers; the
+#: register route's threads, largest shape and partials' stride
+#: (csrc/fused_layout.h).
 _NT = 256
+_COLS_PER_PASS = _NT // 2
+_MAX_PASSES = 2
+_MAX_ROWS = 8
+_MBAR_BYTES = 128
+_NT_REG = 512
+_REG_COLS, _REG_ROWS = 128, 256
+_PART_LD = 136
+#: The kernel's routes, by their number in the C entry.
+ROUTES = ("device", "staged", "registers")
 
 
-def smem_bytes(n, m, itemsize, staged):
-    """Dynamic shared memory of one CUDA block: x, q, rhs, x̃ (n each); y,
-    z, w, l, u, ρ, ρ⁻¹ (m each); the column-product partials; and in the
-    staged route the problem's R⁻¹ and A. Mirrors ``smem_elems`` in
-    csrc/fused_iter.cu."""
-    vec = 4 * n + 7 * m + max(n, _NT)
-    return (vec + (n * n + m * n if staged else 0)) * itemsize
+def _round_up(v, k):
+    return -(-v // k) * k
+
+
+def staged_ld(n, itemsize):
+    """Row stride of a staged operator in elements: the row's columns
+    rounded up to 4, then to an odd number of 16-byte units (132 floats at
+    n=128), so that eight threads reading one column of eight consecutive
+    rows hit eight different bank groups."""
+    return ((_round_up(n, 4) * itemsize // 16) | 1) * 16 // itemsize
+
+
+def smem_bytes(n, m, itemsize, route):
+    """Dynamic shared memory of one CUDA block of ``route``. "staged": the
+    mbarriers, A and R⁻¹ at the padded stride, w and rhs permuted in blocks
+    of 32, and x̃; "registers": the mbarriers, R⁻¹ at the padded stride,
+    the per-warp w·A partials, rhs permuted in blocks of 64, and x̃;
+    "device": x, q, rhs, x̃ (n each), y, z, w, l, u, ρ, ρ⁻¹ (m each) and the
+    column-product partials. Mirrors ``staged_bytes``, ``regs_bytes`` and
+    ``device_bytes`` in csrc/fused_layout.h."""
+    if route == "staged":
+        elems = ((m + n) * staged_ld(n, itemsize) + _round_up(m, 32)
+                 + _round_up(n, 32) + _round_up(n, 4))
+        return _MBAR_BYTES + elems * itemsize
+    if route == "registers":
+        elems = (n * staged_ld(n, itemsize) + _NT_REG // 32 * _PART_LD
+                 + _round_up(n, 64) + _REG_COLS)
+        return _MBAR_BYTES + elems * itemsize
+    if route != "device":
+        raise ValueError(f"unknown route {route!r}; the routes are {ROUTES}")
+    return (4 * n + 7 * m + max(n, _NT)) * itemsize
 
 
 def staged_fits(n, m, itemsize):
-    """True when a problem's operators fit a block's shared memory, so the
-    kernel stages them there (float32 up to about n=128, m=256)."""
-    return smem_bytes(n, m, itemsize, True) <= SMEM_LIMIT
+    """True when the staged route takes the shape: its block fits the
+    shared memory a block may use (float32 up to about n=128, m=256), the
+    columns fit two passes and the rows eight a thread."""
+    return (n <= _MAX_PASSES * _COLS_PER_PASS and m <= _MAX_ROWS * _NT
+            and smem_bytes(n, m, itemsize, "staged") <= SMEM_LIMIT)
+
+
+def registers_fit(n, m, itemsize):
+    """True when the register route takes the shape: float32, n at most
+    128 and a multiple of 4, m at most 256 (A is 64 values a thread of
+    512)."""
+    return itemsize == 4 and n % 4 == 0 and n <= _REG_COLS and m <= _REG_ROWS
+
+
+#: Where each route is fastest, measured on an H100 at B=4096
+#: (tools/fused_ab.py): a problem whose operators take under 6 KB runs
+#: fastest from device memory, where many blocks share an SM (n=13, m=21:
+#: 14-16% faster than staged; float64 n=20, m=40, 9.4 KB: staged 7%
+#: faster); the register route multiplies its whole tile, so it wins only
+#: where the shape fills half of it or more (n=96, m=192: 10% faster than
+#: staged; n=64, m=128: 13% slower).
+_SMALL_OPERATOR_BYTES = 6 * 1024
+
+
+def pick_route(n, m, itemsize):
+    """The route a launch takes by default: the device-memory route for
+    small operators; else A in registers where it fits and fills half the
+    register tile; else both operators staged in shared memory where they
+    fit; else the device-memory route."""
+    if (m + n) * n * itemsize < _SMALL_OPERATOR_BYTES:
+        return "device"
+    if registers_fit(n, m, itemsize) and 2 * n * m >= _REG_COLS * _REG_ROWS:
+        return "registers"
+    return "staged" if staged_fits(n, m, itemsize) else "device"
 
 
 def admm_iterate_reference(Rinv, A, q, l, u, rho_vec, rho_inv, x0, y0, z0,
@@ -72,11 +139,10 @@ def admm_iterate_reference(Rinv, A, q, l, u, rho_vec, rho_inv, x0, y0, z0,
 
 
 def _cuda_iterate(Rinv, A, q, l, u, rho_vec, rho_inv, x0, y0, z0, sigma,
-                  alpha, K: int, staged=None):
+                  alpha, K: int, route=None):
     """Launch the Hopper fused kernel on the current stream. Same inputs and
-    outputs as :func:`admm_iterate_reference`. ``staged`` forces the
-    shared-memory (True) or the device-memory (False) route; by default the
-    operators are staged when they fit."""
+    outputs as :func:`admm_iterate_reference`. ``route`` forces one of
+    ``ROUTES``; by default :func:`pick_route` chooses."""
     from ._build import check_launch, load_library
 
     B, n = x0.shape
@@ -84,11 +150,17 @@ def _cuda_iterate(Rinv, A, q, l, u, rho_vec, rho_inv, x0, y0, z0, sigma,
     dt = x0.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"fused kernel takes float32 or float64, not {dt}")
-    if staged is None:
-        staged = staged_fits(n, m, x0.element_size())
-    if smem_bytes(n, m, x0.element_size(), staged) > SMEM_LIMIT:
-        raise ValueError(f"n={n}, m={m} does not fit the "
-                         f"{'staged' if staged else 'device-memory'} route")
+    size = x0.element_size()
+    if route is None:
+        route = pick_route(n, m, size)
+    fits = {"registers": registers_fit(n, m, size),
+            "staged": staged_fits(n, m, size),
+            "device": smem_bytes(n, m, size, "device") <= SMEM_LIMIT}
+    if route not in fits:
+        raise ValueError(f"unknown route {route!r}; the routes are {ROUTES}")
+    if not fits[route]:
+        raise ValueError(f"{dt} at n={n}, m={m} does not fit the {route} "
+                         f"route")
     if K < 1:
         raise ValueError(f"K={K}: the kernel runs at least one iteration")
     floats = [Rinv, A, q, l, u, rho_vec, rho_inv, x0, y0, z0]
@@ -107,10 +179,16 @@ def _cuda_iterate(Rinv, A, q, l, u, rho_vec, rho_inv, x0, y0, z0, sigma,
     outs = [torch.empty((B, k), dtype=dt, device=x0.device)
             for k in (n, m, m, n, m)]
     lib = load_library()
+    code = ROUTES.index(route)
+    c_bytes = lib.osqp_admm_iterate_smem_bytes(int(size == 8), code, n, m)
+    if c_bytes != smem_bytes(n, m, size, route):
+        raise RuntimeError(f"fused kernel layout: the CUDA source takes "
+                           f"{c_bytes} bytes, smem_bytes says "
+                           f"{smem_bytes(n, m, size, route)}")
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     ptr = [ctypes.c_void_p(tsr.data_ptr()) for tsr in floats + outs]
     err = lib.osqp_admm_iterate(
-        1 if dt == torch.float64 else 0, 1 if staged else 0, *ptr,
+        1 if dt == torch.float64 else 0, code, *ptr,
         B, n, m, int(K), float(sigma), float(alpha), ctypes.c_void_p(stream))
     check_launch(lib, err, "fused kernel")
     admm_iterate.launches += 1

@@ -24,7 +24,6 @@ import ctypes
 import inspect
 import re
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -33,6 +32,7 @@ from unittest import mock
 
 from ..ops import _build
 from ..ops import solve_kernel as SK
+from . import variants
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "solve_kernel.cu"
 
@@ -69,11 +69,7 @@ ABLATIONS = [
 
 
 def variant_source(edits):
-    src = SOURCE.read_text()
-    for old, new in edits:
-        if old not in src:
-            raise ValueError(f"ablation text not in the source: {old!r}")
-        src = src.replace(old, new)
+    src = variants.edited(SOURCE.read_text(), edits)
     # only the float32 tiled route at G=32: a short build
     src = src.replace(
         "if (tiled) return int(dispatch_tiled<double>(a, G, s));",
@@ -90,23 +86,13 @@ def variant_source(edits):
 
 def build_all(workdir: Path):
     """Build every ablation at once; returns {name: (library, report)}."""
-    procs = {}
-    for k, (name, edits) in enumerate(ABLATIONS):
-        cu = workdir / f"ablation{k}.cu"
-        cu.write_text(variant_source(edits))
-        procs[name] = (workdir / f"ablation{k}.so", subprocess.Popen(
-            [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-Xptxas=-v", "-shared", "-o",
-             str(workdir / f"ablation{k}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = variants.build({name: (variant_source(edits), SOURCE.parent)
+                            for name, edits in ABLATIONS}, workdir)
     libs = {}
-    for name, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{out[-3000:]}")
+    for name, (so, out) in built.items():
         regs = re.findall(r"Used (\d+) registers", out)
         spills = re.findall(r"(\d+) bytes spill stores", out)
-        libs[name] = (str(so), f"{regs[0] if regs else '?'} registers, "
+        libs[name] = (so, f"{regs[0] if regs else '?'} registers, "
                       f"{spills[0] if spills else '?'} bytes spilled")
     return libs
 
@@ -152,8 +138,7 @@ def main():
             k50[16] = 50                    # max_iter
             times = {name: {"full": [], "k100": [], "k50": []}
                      for name in legs}
-            order = list(legs) + list(legs)[::-1]
-            for name in order:
+            for name in variants.in_turns(legs):
                 with mock.patch.object(SK, "_cuda_leg", legs[name]):
                     for key, a in (("full", full), ("k100", k100),
                                    ("k50", k50)):

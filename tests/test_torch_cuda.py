@@ -317,23 +317,26 @@ def _fused_args(dev, dtype, B, n, m, seed=0, nan_lane=None):
     return [t(a) for a in (Rinv, A, q, c - w, c + w, rho, 1 / rho, x, y, z)]
 
 
-@pytest.mark.parametrize("dtype,staged", [
-    (torch.float32, True), (torch.float32, False), (torch.float64, False)],
-    ids=["f32-staged", "f32-device", "f64-device"])
-def test_fused_kernel_matches_plain(dev, dtype, staged):
-    """The main shape n=128, m=256: float32 stages the operators in shared
-    memory (about 206 KB), float64 reads them from device memory; float32
-    runs the device-memory route too. A NaN problem stays NaN and alone.
-    Tolerances relative to max(1, max |x|): float64 1e-9, float32 1e-4
-    (summation order)."""
+@pytest.mark.parametrize("dtype,route", [
+    (torch.float32, "staged"), (torch.float32, "device"),
+    (torch.float64, "device"), (torch.float32, "registers")],
+    ids=["f32-staged", "f32-device", "f64-device", "f32-registers"])
+def test_fused_kernel_matches_plain(dev, dtype, route):
+    """The main shape n=128, m=256: float32 holds A in registers by default
+    and can stage both operators in shared memory (204,928 bytes), float64
+    reads them from device memory; float32 runs the device-memory route
+    too. A NaN problem stays NaN and alone. Tolerances relative to
+    max(1, max |x|): float64 1e-9, float32 1e-4 (summation order)."""
     from osqp_tpu_torch.ops import fused_iter as FI
     ops = _fused_args(dev, dtype, 6, 128, 256, nan_lane=2)
     assert FI.staged_fits(128, 256, ops[0].element_size()) == (
         dtype == torch.float32)
+    assert FI.pick_route(128, 256, ops[0].element_size()) == (
+        "registers" if dtype == torch.float32 else "device")
     sigma = float(torch.tensor(1e-6, dtype=dtype))
     alpha = float(torch.tensor(1.6, dtype=dtype))
     before = FI.admm_iterate.launches
-    k = FI._cuda_iterate(*ops, sigma, alpha, 25, staged=staged)
+    k = FI._cuda_iterate(*ops, sigma, alpha, 25, route=route)
     assert FI.admm_iterate.launches == before + 1
     p = FI.admm_iterate_reference(*ops, sigma, alpha, 25)
     torch.cuda.synchronize()
@@ -341,6 +344,73 @@ def test_fused_kernel_matches_plain(dev, dtype, staged):
     for a, b in zip(k, p):
         assert _scale_err(a, b) <= tol
     assert torch.isnan(k[0][2]).all()
+
+
+@pytest.mark.parametrize("dtype,B,n,m,K", [
+    (torch.float32, 133, 13, 21, 25),
+    (torch.float64, 133, 13, 21, 25),
+    (torch.float64, 7, 14, 128, 25),
+    (torch.float32, 7, 16, 40, 25),
+    (torch.float32, 5, 20, 600, 10),
+    (torch.float32, 5, 160, 40, 10),
+    (torch.float32, 140, 128, 256, 25),
+], ids=["ragged-f32", "ragged-f64", "tma-pad-f64", "cp16-f32", "rows4-f32",
+        "passes2-f32", "main-B140-f32"])
+def test_fused_staged_route_matches_plain(dev, dtype, B, n, m, K):
+    """The staged route at shapes that take each of its branches: rows that
+    are not 16-byte multiples (copied one value at a time, in float32 and
+    in the float64 build), TMA boxes whose padding columns arrive as zeros,
+    16-byte cp.async copies with a partial last slab, four rows a thread,
+    two column passes, and the main shape with more problems than SMs. A
+    NaN problem stays NaN and alone. Tolerances relative to max(1, max |x|):
+    float64 1e-9, float32 1e-4 (summation order)."""
+    from osqp_tpu_torch.ops import fused_iter as FI
+    ops = _fused_args(dev, dtype, B, n, m, seed=3, nan_lane=1)
+    assert FI.staged_fits(n, m, ops[0].element_size())
+    sigma = float(torch.tensor(1e-6, dtype=dtype))
+    alpha = float(torch.tensor(1.6, dtype=dtype))
+    k = FI._cuda_iterate(*ops, sigma, alpha, K, route="staged")
+    p = FI.admm_iterate_reference(*ops, sigma, alpha, K)
+    torch.cuda.synchronize()
+    tol = 1e-9 if dtype == torch.float64 else 1e-4
+    for a, b in zip(k, p):
+        assert _scale_err(a, b) <= tol
+    assert torch.isnan(k[0][1]).all()
+    assert torch.isfinite(k[0][torch.arange(B, device=dev) != 1]).all()
+
+
+@pytest.mark.parametrize("B,n,m,K", [
+    (140, 128, 256, 25), (7, 100, 200, 25), (5, 20, 64, 10), (3, 4, 1, 10)],
+    ids=["main-B140", "ragged", "small", "one-row"])
+def test_fused_register_route_matches_plain(dev, B, n, m, K):
+    """The register route (float32, A in registers): the main shape with
+    more problems than SMs; rows and columns short of the tile (zeros in
+    the registers, a partial 64-row block of R⁻¹); a single constraint. A
+    NaN problem stays NaN and alone. Tolerance 1e-4 of max(1, max |x|)."""
+    from osqp_tpu_torch.ops import fused_iter as FI
+    ops = _fused_args(dev, torch.float32, B, n, m, seed=5, nan_lane=1)
+    assert FI.registers_fit(n, m, 4)
+    k = FI._cuda_iterate(*ops, 1e-6, 1.6, K, route="registers")
+    p = FI.admm_iterate_reference(*ops, 1e-6, 1.6, K)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _scale_err(a, b) <= 1e-4
+    assert torch.isnan(k[0][1]).all()
+    assert torch.isfinite(k[0][torch.arange(B, device=dev) != 1]).all()
+
+
+@pytest.mark.parametrize("route", ["registers", "staged"])
+def test_fused_single_step_keeps_the_input_as_snapshot(dev, route):
+    """K=1 at the main shape in float32 (TMA boxes): x_prev and y_prev are
+    the input, bit for bit."""
+    from osqp_tpu_torch.ops import fused_iter as FI
+    ops = _fused_args(dev, torch.float32, 9, 128, 256, seed=4)
+    k = FI._cuda_iterate(*ops, 1e-6, 1.6, 1, route=route)
+    p = FI.admm_iterate_reference(*ops, 1e-6, 1.6, 1)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _scale_err(a, b) <= 1e-4
+    assert torch.equal(k[3], ops[7]) and torch.equal(k[4], ops[8])
 
 
 def test_fused_kernel_single_step_small(dev):

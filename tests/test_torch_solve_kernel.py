@@ -22,6 +22,7 @@ from osqp_tpu.ops.shared_iter import dot3 as jdot3, split_bf16 as jsplit
 from osqp_tpu.ops.solve_kernel import admm_solve_shared as jax_leg
 from osqp_tpu_torch.ops import solve_kernel as SK
 from osqp_tpu_torch.ops.shared_iter import dot3, split_bf16
+from osqp_tpu_torch.tools import fused_ab as FA
 from osqp_tpu_torch.tools import leg_ablation as LA
 from osqp_tpu_torch.tools import trace_solve
 
@@ -265,13 +266,14 @@ def test_leg_ablation_matches_kernel_source(name):
         assert new in src
 
 
-@pytest.mark.parametrize("tool", [LA, trace_solve],
-                         ids=["leg_ablation", "trace_solve"])
-def test_measurement_tools_refuse_without_gpu(tool, capsys):
+@pytest.mark.parametrize("tool", [LA, trace_solve, FA],
+                         ids=["leg_ablation", "trace_solve", "fused_ab"])
+def test_measurement_tools_refuse_without_gpu(tool, capsys, monkeypatch):
     """The card measurements exit non-zero, and print no result, where
     there is no GPU."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
+    monkeypatch.setattr("sys.argv", [tool.__name__])
     assert tool.main() == 2
     assert "no CUDA device" in capsys.readouterr().err
 
