@@ -20,11 +20,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    cold solve with every leg forced through the plain twin;
 5. holds the iteration kernel (csrc/shared_iter.cu) against its twin for
    one 25-iteration chunk at B=4096, n=128, m=256 in float32, lowp and
-   tf32, and times both;
+   tf32, each on its default route (float32 the tiled route, lowp the mma
+   route, tf32 the simple one) and float32 and lowp also on the simple
+   route; prints the new routes' threads, shared memory and the compiler's
+   registers and spills; times each default route in turns with the simple
+   route on the same inputs, and the twin;
 6. drives the mixed-precision path at full size — the same batch with
    Settings(mixed_precision=True): a cold solve, prepare and three warm
    prepared re-solves — checks every lane Solved, 64 lanes in float64
-   numpy, and prints the split of bf16 and full-precision chunks;
+   numpy, and prints the split of bf16 and full-precision chunks and the
+   routes they took;
 7. builds B=4096 QPs with n=128, m=256 in which every lane has its own P and
    A (the bench generator, one matrix draw per lane), holds the fused kernel
    (csrc/fused_iter.cu) against its twin for one 25-iteration chunk on
@@ -243,6 +248,7 @@ def main():
     def reset_counts():
         for fn in kernels.values():
             fn.launches = 0
+        SI.admm_iterate_shared.route_launches = dict.fromkeys(SI.ROUTES, 0)
 
     def counts():
         torch.cuda.synchronize()
@@ -463,11 +469,19 @@ def main():
         return mock.patch.object(SI, "_cuda_iterate",
                                  SI.admm_iterate_shared_reference)
 
+    real_iterate = SI._cuda_iterate
+
+    def iterate_route(route):
+        return mock.patch.object(SI, "_cuda_iterate", functools.partial(
+            real_iterate, route=route))
+
     # Tolerances relative to max(1, max |output|): float32 and tf32 1e-4
     # (summation order); lowp 5e-2, since a float32 sum that differs in the
     # last bit can round w or rhs to the neighbouring bf16 value (2^-8
     # relative) and 25 iterations carry such steps on.
     iter_rows = {}
+    kernel_of = {"tiled": "tiled_iterate_kernelILi%dE", "mma":
+                 "mma_iterate_kernel"}
     with precision_scope():
         args, _ = leg_setup(torch, torch.float32, B_MAIN)
         (Rinv, _, Ab, rho_vec, rho_inv, _, _, _, qb, lb, ub, x0, y0,
@@ -478,18 +492,42 @@ def main():
         for name, kw2, tol in (("f32", {}, 1e-4),
                                ("lowp", dict(lowp=True), 5e-2),
                                ("tf32", dict(tf32=True), 1e-4)):
-            k = SI.admm_iterate_shared(*it_args, **kw2)
+            default = SI.pick_route(N, M, torch.float32, **kw2)
+            routes = [default] + (["simple"] if default != "simple" else [])
             with plain_iterate():
                 p = SI.admm_iterate_shared(*it_args, **kw2)
             torch.cuda.synchronize()
             scale = max(1.0, max(float(v.abs().max()) for v in p))
-            err = max(float((a - b).abs().max()) for a, b in zip(k, p))
-            say(f"[5] {name} chunk B={B_MAIN} K={K_CHUNK}: max |kernel - "
-                f"plain| over x, y, z, x_prev, y_prev {err:.3e} (scale "
-                f"{scale:.2f}, tolerance {tol:g} of it)")
-            require(err <= tol * scale, f"[5] {name}: outputs differ by {err}")
-            ms = cuda_ms(torch, lambda: SI.admm_iterate_shared(*it_args,
-                                                               **kw2), 5)
+            errs = {}
+            for r in routes:
+                with iterate_route(r):
+                    k = SI.admm_iterate_shared(*it_args, **kw2)
+                torch.cuda.synchronize()
+                errs[r] = max(float((a - b).abs().max())
+                              for a, b in zip(k, p))
+                say(f"[5] {name} chunk B={B_MAIN} K={K_CHUNK}, {r} route"
+                    f"{' (the default)' if r == default else ''}: max "
+                    f"|kernel - plain| over x, y, z, x_prev, y_prev "
+                    f"{errs[r]:.3e} (scale {scale:.2f}, tolerance {tol:g} "
+                    f"of it)")
+                require(errs[r] <= tol * scale,
+                        f"[5] {name}, {r} route: outputs differ by {errs[r]}")
+            if default != "simple":
+                G = SI.tiled_group(B_MAIN, N, M) if default == "tiled" else (
+                    SI.MMA_GROUP)
+                smem = (SI.tiled_smem_bytes(G, N, M) if default == "tiled"
+                        else SI.mma_smem_bytes(N, M))
+                kname = kernel_of[default].replace("%d", str(G))
+                say(f"[5] {default} route: G={G} lanes a block, "
+                    f"{-(-B_MAIN // G)} blocks of {SI._NT} threads, {smem} "
+                    f"bytes of shared memory; ptxas: "
+                    f"{ptxas_usage(log, kname)}")
+            # the default route and the simple route in turns
+            ms = {r: [] for r in routes}
+            for r in routes + routes[::-1]:
+                with iterate_route(r):
+                    ms[r].append(cuda_ms(torch, lambda: SI.admm_iterate_shared(
+                        *it_args, **kw2), 5))
             with plain_iterate():
                 pms = cuda_ms(torch, lambda: SI.admm_iterate_shared(
                     *it_args, **kw2), 5)
@@ -501,9 +539,14 @@ def main():
             else:  # bf16 operands: one product (lowp) or three (tf32)
                 b_ms, b_by = bound(iter_flops * (3 if name == "tf32" else 1),
                                    nbytes, PEAK_BF16)
-            iter_rows[name] = dict(err=err, ms=ms, plain_ms=pms,
-                                   bound_ms=b_ms, bound_by=b_by)
-            say(f"[5] {name}: kernel {ms:.3f} ms, plain twin {pms:.3f} ms, "
+            iter_rows[name] = dict(
+                err=errs[default], route=default,
+                ms=statistics.median(ms[default]),
+                simple_ms=statistics.median(ms["simple"]), plain_ms=pms,
+                bound_ms=b_ms, bound_by=b_by)
+            say(f"[5] {name}: " + ", ".join(
+                f"{r} route {' / '.join(f'{t:.3f}' for t in ms[r])} ms"
+                for r in routes) + f" (in turns); plain twin {pms:.3f} ms, "
                 f"bound {b_ms:.4f} ms ({b_by})")
 
     # ---- 6. the mixed-precision path at full size ----
@@ -511,7 +554,6 @@ def main():
                                 dtype=np.float32, mixed_precision=True),
                        kkt_mode="shared", device="cuda")
     chunks = {"bf16": 0, "full": 0}
-    real_iterate = SI._cuda_iterate
 
     def counting(*a, **kw):
         chunks["bf16" if kw.get("lowp") else "full"] += 1
@@ -532,6 +574,7 @@ def main():
             mp_warm.append(t)
             mp_iters.append(o.iter.float().mean().item())
     path6 = counts()
+    routes6 = dict(SI.admm_iterate_shared.route_launches)
     st6 = mp_cold.status.cpu().numpy()
     say(f"[6] mixed-precision cold solve B={B_MAIN}: {mp_cold_ms:.1f} ms, "
         f"solved {int((st6 == C.SOLVED).sum())}/{B_MAIN}, iterations mean "
@@ -539,13 +582,25 @@ def main():
         f"{int(mp_cold.iter.max())}; three warm prepared re-solves "
         f"{[round(t, 1) for t in mp_warm]} ms, mean iterations {mp_iters}")
     say(f"[6] chunks over the mixed-precision path: {chunks['bf16']} bf16, "
-        f"{chunks['full']} full precision; launches {path6}")
+        f"{chunks['full']} full precision; launches {path6}; by route "
+        f"{routes6}")
     require(np.all(st6 == C.SOLVED), "[6] cold solve: not every lane Solved")
     require(np.array_equal(st6, st), "[6] statuses differ from phase 4")
     require(path6["admm_iterate_shared"] > 0,
             "[6] the mixed-precision path never launched its kernel")
+    for r in (iter_rows["f32"]["route"], iter_rows["lowp"]["route"]):
+        require(routes6[r] > 0, f"[6] no chunk ran the {r} route")
     residual_check("[6]", mp_cold, P, q, A, l, u, idx)
-    # the JSON row is the variant the path launched most
+    # the mixed cold solve, in turns with phase 4's float32 shared solve
+    mixed_t, f32_t = [], []
+    for eng in ("mixed", "f32", "f32", "mixed"):
+        t, _ = wall_ms(torch, lambda: (mp if eng == "mixed" else solver)
+                       .solve(Pd, qd, Ad, ld, ud), 1)
+        (mixed_t if eng == "mixed" else f32_t).append(t)
+    say(f"[6] cold solves after the first, in turns: mixed precision "
+        f"{[round(t, 2) for t in mixed_t]} ms, float32 shared "
+        f"{[round(t, 2) for t in f32_t]} ms")
+    # the JSON row's main numbers are the variant the path launched most
     iter_variant = "lowp" if chunks["bf16"] >= chunks["full"] else "f32"
 
     # ---- 7. the fused kernel and the per-lane path at full size ----
@@ -672,6 +727,10 @@ def main():
         f"{[round(t, 1) for t in lane_t['inverse']]} ms")
 
     ir = iter_rows[iter_variant]
+    iter_extra = {f"{v}_{key}": iter_rows[v][k2] for v in ("f32", "lowp")
+                  for key, k2 in (("route", "route"), ("ms", "ms"),
+                                  ("simple_ms", "simple_ms"),
+                                  ("bound_ms", "bound_ms"))}
     rows = [
         dict(name="admm_solve_shared", source="solve_kernel.cu",
              replaces="osqp_tpu/ops/solve_kernel.py:44", launches=launches,
@@ -681,7 +740,8 @@ def main():
              replaces="osqp_tpu/ops/shared_iter.py:50",
              launches=path6["admm_iterate_shared"], max_abs_err=ir["err"],
              ms=ir["ms"], plain_ms=ir["plain_ms"], bound_ms=ir["bound_ms"],
-             bound_by=ir["bound_by"], variant=iter_variant),
+             bound_by=ir["bound_by"], variant=iter_variant,
+             route_launches=routes6, **iter_extra),
         dict(name="admm_iterate", source="fused_iter.cu",
              replaces="osqp_tpu/ops/fused_iter.py:30",
              launches=path7["admm_iterate"], max_abs_err=fused_err,

@@ -22,7 +22,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / f for f in
                  ("solve_kernel.cu", "shared_iter.cu", "fused_iter.cu"))
-_HEADERS = (_PKG / "csrc" / "fused_layout.h",)
+_HEADERS = tuple(_PKG / "csrc" / f for f in
+                 ("fused_layout.h", "tiled_product.h", "shared_iter_layout.h"))
 BUILD_DIR = _PKG / ".build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -84,28 +85,41 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     return out, "".join(log)
 
 
+def _signatures():
+    """{C entry: (restype, argtypes)} of every kernel entry."""
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    ll = ctypes.c_longlong
+    return {
+        "osqp_admm_solve_shared": (i, [i, i, i] + [vp] * 27 + [i] * 5
+                                   + [d, d, i, i] + [d] * 6 + [i, vp]),
+        "osqp_admm_iterate_shared": (i, [i] + [vp] * 16 + [i] * 6
+                                     + [d, d, vp]),
+        "osqp_admm_iterate_shared_tiled": (i, [vp] * 15 + [i] * 6
+                                           + [d, d, vp]),
+        "osqp_admm_iterate_shared_mma": (i, [vp] * 17 + [i] * 5
+                                         + [d, d, vp]),
+        "osqp_admm_iterate_shared_smem_bytes": (ll, [i] * 4),
+        "osqp_admm_iterate": (i, [i, i] + [vp] * 15 + [i] * 4 + [d, d, vp]),
+        "osqp_admm_iterate_smem_bytes": (ll, [i] * 4),
+        "osqp_cuda_error_string": (ctypes.c_char_p, [i]),
+    }
+
+
+def declare(lib, names=None):
+    """Declare the C entries ``names`` (all by default) of a loaded
+    library, so that ctypes passes pointers and doubles whole."""
+    for name, (res, args) in _signatures().items():
+        if names is None or name in names:
+            f = getattr(lib, name)
+            f.restype, f.argtypes = res, args
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, then load the library and declare its functions."""
     path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    f = lib.osqp_admm_solve_shared
-    f.restype = i
-    f.argtypes = ([i, i, i] + [vp] * 27 + [i] * 5 + [d, d, i, i]
-                  + [d] * 6 + [i, vp])
-    f = lib.osqp_admm_iterate_shared
-    f.restype = i
-    f.argtypes = [i] + [vp] * 16 + [i] * 6 + [d, d, vp]
-    f = lib.osqp_admm_iterate
-    f.restype = i
-    f.argtypes = [i, i] + [vp] * 15 + [i] * 4 + [d, d, vp]
-    f = lib.osqp_admm_iterate_smem_bytes
-    f.restype = ctypes.c_longlong
-    f.argtypes = [i, i, i, i]
-    lib.osqp_cuda_error_string.restype = ctypes.c_char_p
-    lib.osqp_cuda_error_string.argtypes = [i]
-    return lib
+    return declare(ctypes.CDLL(str(path)))
 
 
 def check_launch(lib, err: int, what: str) -> None:

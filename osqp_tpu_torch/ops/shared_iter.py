@@ -21,6 +21,15 @@ rhs once per step, multiplies exactly and accumulates in the working dtype;
 ``tf32`` runs the bf16x3 split product on all three products. The group
 size changes nothing numerically (lanes are independent); it sets the
 granularity of ``live_groups``, and the port masks a ragged last group.
+
+The CUDA kernel has three routes (``ROUTES``; :func:`pick_route` chooses
+by dtype, mode and shape): "tiled" runs float32 on the leg kernel's
+register-tiled product (``csrc/tiled_product.h``), "mma" runs lowp with
+float32 accumulation on bf16 tensor-core products (``mma.sync``) against
+operators kept in shared memory, and "simple" runs everything else. The
+new routes take their own group sizes, so the wrapper hands them the live
+prefix in lanes, ``live_groups × group``; their shared-memory layout is
+``csrc/shared_iter_layout.h``.
 """
 
 from __future__ import annotations
@@ -33,8 +42,21 @@ from ..linalg import with_precision
 from . import _hopper
 from ._hopper import SMEM_LIMIT
 
-#: Group sizes the CUDA kernel is instantiated for.
+#: Group sizes the simple route is instantiated for.
 GROUPS = (16, 8, 4, 2, 1)
+#: Group sizes the tiled route is instantiated for.
+GROUPS_TILED = (32, 16, 8, 4, 2, 1)
+#: The kernel's routes.
+ROUTES = ("simple", "tiled", "mma")
+#: Threads per block of the tiled and mma routes (csrc/tiled_product.h).
+_NT = 256
+#: The mma route's lanes a block (one m16n8k16 M tile), warps, n-tiles of
+#: 8 columns a warp keeps for x and for z, and room of its mbarrier
+#: (csrc/shared_iter_layout.h).
+MMA_GROUP = 16
+_MMA_WARPS = _NT // 32
+_MAX_XT, _MAX_ZT = 2, 4
+_MMA_MBAR_BYTES = 128
 
 
 def split_bf16(x):
@@ -65,14 +87,108 @@ def smem_bytes(G, n, m, itemsize, tf32=False):
 
 
 def pick_group(B, n, m, itemsize, tf32=False):
-    """Group rule of the iteration kernel, the leg kernel's rule
+    """Group rule of the simple route, the leg kernel's simple rule
     (:func:`osqp_tpu_torch.ops.solve_kernel.pick_group`) on this kernel's
     smaller block: the largest G whose block leaves room for a second block
     on its SM and still gives at least one block per SM; the smallest G
-    that fits when the batch cannot fill the card."""
+    that fits when the batch cannot fill the card. It is also the default
+    granularity of ``live_groups`` on every route."""
     return _hopper.pick_group(
         B, GROUPS, lambda G: smem_bytes(G, n, m, itemsize, tf32),
         f"iteration kernel at n={n}, m={m}")
+
+
+def _round_up(v, k):
+    return -(-v // k) * k
+
+
+def tiled_smem_bytes(G, n, m):
+    """Dynamic shared memory of one block of the tiled route (float32): the
+    mbarriers and the ring of operator slices (as the leg kernel's), the
+    k-major lane state x and rhs (n each), z and t (m each, rows padded to
+    G+1), w (m, which also takes l) and u (m), each rounded up to four
+    values. Mirrors ``tiled_bytes`` in csrc/shared_iter_layout.h."""
+    elems = (2 * _round_up(n * G, 4) + 2 * _round_up(m * (G + 1), 4)
+             + 2 * _round_up(m * G, 4))
+    return _hopper.ring_bytes(n, m, 4) + 4 * elems
+
+
+def tiled_group(B, n, m):
+    """Group size of the tiled route: the leg kernel's tiled rule
+    (:func:`_hopper.pick_group_tiled`) on this route's block, G=32 at
+    B=4096, n=128, m=256."""
+    return _hopper.pick_group_tiled(
+        B, GROUPS_TILED, lambda G: tiled_smem_bytes(G, n, m),
+        f"iteration kernel's tiled route at n={n}, m={m}")
+
+
+def mma_ld(k):
+    """Row stride in bf16 values of an mma-route operand whose rows run
+    along a product's K side of ``k`` values: k padded to whole k-steps of
+    16, plus 8, an odd number of 16-byte units (k=128: 136; k=256: 264),
+    so that the eight rows an ldmatrix phase reads hit eight different
+    bank groups. Mirrors ``mma_ld`` in csrc/shared_iter_layout.h."""
+    return _round_up(k, 16) + 8
+
+
+def mma_operator_bytes(n, m):
+    """Bytes of the mma route's bf16 operators as its kernel lays them out
+    (in the scratch buffer the wrapper gives it, and in each block's shared
+    memory): [αR⁻¹ | αR⁻¹Aᵀ]ᵀ with one row per output column, the x columns
+    padded to a multiple of 8 rows and the z columns likewise, then Aᵀ with
+    one row per x column, all rows of :func:`mma_ld` values. Mirrors
+    ``opt_bytes`` + ``at_bytes`` in csrc/shared_iter_layout.h."""
+    nx, mz = _round_up(n, 8), _round_up(m, 8)
+    return 2 * ((nx + mz) * mma_ld(n) + nx * mma_ld(m))
+
+
+def mma_smem_bytes(n, m):
+    """Dynamic shared memory of one block of the mma route: the mbarrier,
+    the operators (:func:`mma_operator_bytes`), the 16-row bf16 lane
+    operands w and rhs. Mirrors ``mma_bytes`` in
+    csrc/shared_iter_layout.h."""
+    return (_MMA_MBAR_BYTES + mma_operator_bytes(n, m)
+            + 2 * MMA_GROUP * (mma_ld(m) + mma_ld(n)))
+
+
+def mma_fits(n, m):
+    """True when the mma route takes the shape: its warps keep the lane
+    state of at most 128 x columns and 256 z columns in registers, and its
+    block fits the shared memory a block may use (185 KB at n=128,
+    m=256)."""
+    return (_round_up(n, 8) <= 8 * _MMA_WARPS * _MAX_XT
+            and _round_up(m, 8) <= 8 * _MMA_WARPS * _MAX_ZT
+            and mma_smem_bytes(n, m) <= SMEM_LIMIT)
+
+
+#: The tiled route takes float32 from this much work a lane and iteration
+#: (n(n+m) multiply-adds of the two products' n+m columns) up: on an NVIDIA
+#: H100 80GB HBM3 at 700 W at B=4096 (``tools/iter_ab.py``, kernels alone)
+#: it beat the simple route by 5-6% at n=16, m=32 (768) and lost by 3-13%
+#: at n=13, m=21 (442).
+_TILED_MIN_WORK = 768
+
+
+def pick_route(n, m, dtype, lowp=False, tf32=False):
+    """The route a launch takes by default: float32 (neither lowp nor tf32)
+    the tiled route where its block fits and the shape is not tiny
+    (``_TILED_MIN_WORK``); lowp in float32 the mma route where it fits;
+    everything else the simple route: float64, lowp accumulated in float64
+    (no tensor-core product does), tf32 (no solve path runs it: the
+    reference calls the kernel with ``lowp`` only), and larger shapes.
+
+    Measured on an NVIDIA H100 80GB HBM3 at 700 W, a 25-iteration chunk
+    at B=4096 (``tools/iter_ab.py``, kernels alone): at n=128, m=256 the
+    tiled route 0.777 ms against the simple route's 1.737 ms, the mma route
+    0.186 ms against 1.376 ms; the mma route won at every measured shape
+    down to n=13, m=21 (0.066-0.070 against 0.145-0.152 ms)."""
+    if dtype == torch.float32 and not tf32:
+        if lowp:
+            return "mma" if mma_fits(n, m) else "simple"
+        if (n * (n + m) >= _TILED_MIN_WORK
+                and tiled_smem_bytes(1, n, m) <= SMEM_LIMIT):
+            return "tiled"
+    return "simple"
 
 
 def admm_iterate_shared_reference(Rinv_a, A, RAt_a, rho, rho_inv, q, l, u,
@@ -136,7 +252,8 @@ def admm_iterate_shared_reference(Rinv_a, A, RAt_a, rho, rho_inv, q, l, u,
     return x_o, y_o, z_o, xp_o, yp_o
 
 
-#: C entry variant codes (``osqp_admm_iterate_shared`` in the CUDA source)
+#: C entry variant codes of the simple route (``osqp_admm_iterate_shared``
+#: in the CUDA source)
 _VARIANTS = {(torch.float32, False, False): 0,
              (torch.float64, False, False): 1,
              (torch.float32, True, False): 2,
@@ -144,12 +261,16 @@ _VARIANTS = {(torch.float32, False, False): 0,
              (torch.float32, False, True): 4}
 
 
-def _cuda_iterate(Rinv_a, A, RAt_a, rho, rho_inv, q, l, u, x0, y0, z0,
-                  sigma, alpha, K: int, live_groups: int, group: int,
-                  lowp: bool = False, tf32: bool = False):
-    """Launch the Hopper iteration kernel on the current stream. Same
-    inputs and outputs as :func:`admm_iterate_shared_reference`."""
-    from ._build import check_launch, load_library
+def _launch_plan(Rinv_a, A, RAt_a, rho, rho_inv, q, l, u, x0, y0, z0,
+                 sigma, alpha, K: int, live_groups: int, group: int,
+                 lowp: bool = False, tf32: bool = False, route=None):
+    """Check the inputs, pick the route, prepare its operators and outputs.
+    Returns (route, launch, operators, outputs): ``launch()`` enqueues the
+    kernel on the current stream and returns the C entry's CUDA error code,
+    and may be called again on the same tensors (the timing tools do);
+    ``operators`` are the tensors it reads its operators from (on the mma
+    route also the scratch where it lays them out in bf16)."""
+    from ._build import load_library
 
     B, n = x0.shape
     m = y0.shape[1]
@@ -158,11 +279,29 @@ def _cuda_iterate(Rinv_a, A, RAt_a, rho, rho_inv, q, l, u, x0, y0, z0,
     if variant is None:
         raise TypeError(f"iteration kernel: no {dt} variant with "
                         f"lowp={lowp}, tf32={tf32}")
-    if group not in GROUPS:
-        raise ValueError(f"group {group} not in {GROUPS}")
-    if smem_bytes(group, n, m, x0.element_size(), tf32) > SMEM_LIMIT:
-        raise ValueError(f"group {group} does not fit shared memory at "
-                         f"n={n}, m={m}")
+    if route is None:
+        route = pick_route(n, m, dt, lowp, tf32)
+    if route == "simple":
+        if group not in GROUPS:
+            raise ValueError(f"group {group} not in {GROUPS}")
+        if smem_bytes(group, n, m, x0.element_size(), tf32) > SMEM_LIMIT:
+            raise ValueError(f"group {group} does not fit shared memory at "
+                             f"n={n}, m={m}")
+    elif route == "tiled":
+        if variant != 0:
+            raise TypeError("the tiled route runs float32 without lowp or "
+                            "tf32")
+        G = tiled_group(B, n, m)
+    elif route == "mma":
+        if variant != 2:
+            raise TypeError("the mma route runs lowp in float32")
+        if not mma_fits(n, m):
+            raise ValueError(f"n={n}, m={m} does not fit the mma route")
+        G = MMA_GROUP
+    else:
+        raise ValueError(f"unknown route {route!r}; the routes are {ROUTES}")
+    if group < 1:
+        raise ValueError(f"group {group}: at least one lane")
     if K < 1:
         raise ValueError(f"K={K}: the kernel runs at least one iteration")
     floats = [Rinv_a, A, RAt_a, rho, rho_inv, q, l, u, x0, y0, z0]
@@ -178,19 +317,66 @@ def _cuda_iterate(Rinv_a, A, RAt_a, rho, rho_inv, q, l, u, x0, y0, z0,
             raise ValueError(f"iteration kernel input {k} is on "
                              f"{tsr.device}, not on a CUDA device")
     floats = [tsr.contiguous() for tsr in floats]
-    if lowp:
+    if route == "tiled":
+        # [αR⁻¹ | αR⁻¹Aᵀ], one product for x̃ and z̃ (the leg's operator)
+        ops = [floats[1], torch.cat([floats[0], floats[2]], dim=1)]
+    elif route == "mma":
+        # the kernel lays the float32 operators out in bf16 in a scratch
+        ops = floats[:3] + [torch.empty(mma_operator_bytes(n, m),
+                                        dtype=torch.uint8, device=x0.device)]
+    elif lowp:
         # the operators in bf16, rounded once per call (halves their bytes)
-        floats[:3] = [o.to(torch.bfloat16).contiguous() for o in floats[:3]]
+        ops = [o.to(torch.bfloat16).contiguous() for o in floats[:3]]
+    else:
+        ops = floats[:3]
     outs = [torch.empty((B, k), dtype=dt, device=x0.device)
             for k in (n, m, m, n, m)]
     lib = load_library()
-    stream = torch.cuda.current_stream(x0.device).cuda_stream
-    ptr = [ctypes.c_void_p(tsr.data_ptr()) for tsr in floats + outs]
-    err = lib.osqp_admm_iterate_shared(
-        variant, *ptr, B, n, m, group, int(live_groups), int(K),
-        float(sigma), float(alpha), ctypes.c_void_p(stream))
-    check_launch(lib, err, "iteration kernel")
+    if route != "simple":
+        c_bytes = lib.osqp_admm_iterate_shared_smem_bytes(
+            ROUTES.index(route), G, n, m)
+        py_bytes = (tiled_smem_bytes(G, n, m) if route == "tiled"
+                    else mma_smem_bytes(n, m))
+        if c_bytes != py_bytes:
+            raise RuntimeError(f"iteration kernel layout: the CUDA source "
+                               f"takes {c_bytes} bytes on the {route} route, "
+                               f"the wrapper says {py_bytes}")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x0.device).cuda_stream)
+    ptr = [ctypes.c_void_p(tsr.data_ptr()) for tsr in ops + floats[3:] + outs]
+    live = min(B, int(live_groups) * group)   # lanes before it iterate
+    tail = (int(K), float(sigma), float(alpha), stream)
+    if route == "simple":
+        args = (lib.osqp_admm_iterate_shared, variant, *ptr, B, n, m, group,
+                int(live_groups), *tail)
+    elif route == "tiled":
+        args = (lib.osqp_admm_iterate_shared_tiled, *ptr, B, n, m, G, live,
+                *tail)
+    else:
+        args = (lib.osqp_admm_iterate_shared_mma, *ptr, B, n, m, live,
+                *tail)
+
+    def launch(_tensors=(ops, floats)):  # what the pointers point into
+        return args[0](*args[1:])
+    return route, launch, ops, outs
+
+
+def _cuda_iterate(Rinv_a, A, RAt_a, rho, rho_inv, q, l, u, x0, y0, z0,
+                  sigma, alpha, K: int, live_groups: int, group: int,
+                  lowp: bool = False, tf32: bool = False, route=None):
+    """Launch the Hopper iteration kernel on the current stream. Same
+    inputs and outputs as :func:`admm_iterate_shared_reference`. ``route``
+    forces one of ``ROUTES``; by default :func:`pick_route` chooses. The
+    simple route runs groups of ``group`` lanes; the tiled and mma routes
+    their own, with the live prefix passed in lanes."""
+    from ._build import check_launch, load_library
+
+    route, launch, _, outs = _launch_plan(
+        Rinv_a, A, RAt_a, rho, rho_inv, q, l, u, x0, y0, z0, sigma, alpha,
+        K, live_groups, group, lowp, tf32, route)
+    check_launch(load_library(), launch(),
+                 f"iteration kernel ({route} route)")
     admm_iterate_shared.launches += 1
+    admm_iterate_shared.route_launches[route] += 1
     return tuple(outs)
 
 
@@ -219,14 +405,16 @@ def admm_iterate_shared(Rinv, A, rho_vec, rho_inv, q, l, u, x, y, z,
     sigma = torch.as_tensor(sigma, dtype=dt).item()
     alpha = torch.as_tensor(alpha, dtype=dt).item()
     # α folded into both operators, at full precision, before any bf16 cast
-    alpha_c = torch.tensor(alpha, dtype=dt, device=x.device)
-    RAt = alpha_c * (Rinv @ A.T)
-    Rinv_a = alpha_c * Rinv
+    # (a Python scalar, so that no host-to-device copy waits on the stream)
+    RAt = (Rinv @ A.T) * alpha
+    Rinv_a = Rinv * alpha
     run = _cuda_iterate if x.is_cuda else admm_iterate_shared_reference
     return run(Rinv_a, A, RAt, rho_vec, rho_inv, q, l, u, x, y, z, sigma,
                alpha, int(K), int(live_groups), G, lowp=lowp, tf32=tf32)
 
 
 #: Launches of the CUDA iteration kernel in this process (the plain twin
-#: does not count). Reset it to 0 before a run to see what the run launched.
+#: does not count), in all and by route. Reset them to 0 before a run to
+#: see what the run launched.
 admm_iterate_shared.launches = 0
+admm_iterate_shared.route_launches = dict.fromkeys(ROUTES, 0)

@@ -45,21 +45,11 @@ _DIV_GUARD = 1e-10
 #: (``NT`` and ``NQ`` in csrc/solve_kernel.cu).
 _NT = 256
 _NQ = 15
-#: The tiled route's operator rows per staged slice, slices in its ring,
-#: and column chunks of four per thread in the (n+m)-wide product (``KS``,
-#: ``STAGES``, ``RC_WIDE`` in csrc/solve_kernel.cu).
-_KS = 16
-_STAGES = 2
-_RC_WIDE = 3
-#: Bytes ahead of the ring that hold the mbarriers (``MBAR_BYTES``).
-_MBAR_BYTES = 64
 #: Group sizes the simple route (tf32, float64) is instantiated for.
 GROUPS = (16, 8, 4, 2, 1)
 #: Group sizes the tiled route (float32; float64 for the card tests) is
 #: instantiated for.
 GROUPS_TILED = (32, 16, 8, 4, 2, 1)
-#: The tiled rule wants at least this many blocks: 7/8 of the H100's SMs.
-_MIN_BLOCKS_TILED = _hopper.NUM_SMS - _hopper.NUM_SMS // 8
 
 
 class LegScalars(NamedTuple):
@@ -90,18 +80,15 @@ def _r4(v):
 
 def tiled_smem_bytes(G, n, m, itemsize):
     """Dynamic shared memory of one block of the tiled route: the mbarriers
-    of the ring and of l and u, the ring of operator slices (``_STAGES``
-    slices of ``_KS`` rows, each as wide as the widest product's pass), the
-    k-major lane state x, rhs (n each) and w (m, which also takes l), u
-    (m), z and t (m each, rows padded to G+1), each rounded up to four
-    values, packed stats, per-lane scalars and the reduction slots. Mirrors
-    ``tiled_smem_elems`` in the CUDA source."""
-    tm = G // 8 if G >= 8 else 1             # lanes per thread
-    ct = _NT * tm // G                       # threads along the columns
-    width = min(4 * _RC_WIDE * ct, _r4(n + m))
-    elems = (_STAGES * _KS * width + 2 * _r4(n * G) + 2 * _r4(m * G)
-             + 2 * _r4(m * (G + 1)) + 12 * G + _NQ * G * (_NT // 32))
-    return _MBAR_BYTES + elems * itemsize
+    of the ring and of l and u, the ring of operator slices
+    (:func:`_hopper.ring_bytes`), the k-major lane state x, rhs (n each)
+    and w (m, which also takes l), u (m), z and t (m each, rows padded to
+    G+1), each rounded up to four values, packed stats, per-lane scalars
+    and the reduction slots. Mirrors ``tiled_smem_elems`` in the CUDA
+    source."""
+    elems = (2 * _r4(n * G) + 2 * _r4(m * G) + 2 * _r4(m * (G + 1))
+             + 12 * G + _NQ * G * (_NT // 32))
+    return _hopper.ring_bytes(n, m, itemsize) + elems * itemsize
 
 
 def simple_smem_bytes(G, n, m, itemsize, tf32=False):
@@ -123,28 +110,18 @@ def smem_bytes(G, n, m, itemsize, tf32=False):
 
 
 def pick_group_tiled(B, n, m, itemsize):
-    """Group rule of the tiled route: the largest G whose block fits and
-    that still gives at least 7/8 of the card's SMs a block; the smallest G
-    that fits when the batch cannot.
-
-    The tiled route runs one block per SM and hides latency with its copy
-    ring and each thread's independent accumulators, not with resident
-    warps, so a larger G pays: each operator slice read from L2 serves G
-    lanes, and a block's fixed work per slice is shared by more lanes. At
-    B=4096, n=128, m=256 in float32 it picks G=32 (128 blocks): on an
-    NVIDIA H100 80GB HBM3 at 700 W a 100-iteration leg took 4.24 ms at
-    G=32, 5.35 ms at G=16 and 7.77 ms at G=8 (``chip_smoke.py``, phase 3)."""
-    fits = [G for G in GROUPS_TILED
-            if tiled_smem_bytes(G, n, m, itemsize) <= SMEM_LIMIT]
-    if not fits:
-        raise ValueError(
-            f"one lane of the leg kernel at n={n}, m={m} needs "
-            f"{tiled_smem_bytes(1, n, m, itemsize)} bytes of shared memory, "
-            f"more than the {SMEM_LIMIT} a block may use")
-    for G in fits:
-        if -(-B // G) >= _MIN_BLOCKS_TILED:
-            return G
-    return fits[-1]
+    """Group rule of the tiled route, :func:`_hopper.pick_group_tiled` on
+    the leg's block: the largest G whose block fits and that still gives
+    at least 7/8 of the card's SMs a block. At B=4096, n=128, m=256 in
+    float32 it picks G=32 (128 blocks): on an NVIDIA H100 80GB HBM3 at 700
+    W a 100-iteration leg took 4.24 ms at G=32, 5.35 ms at G=16 and 7.77 ms
+    at G=8 (``chip_smoke.py``, phase 3). The ring's slices do not widen as
+    G falls (:func:`_hopper.slice_width`), so large shapes fit a small G:
+    G=4 at
+    n=768, m=1536 and at n=1024, m=2048."""
+    return _hopper.pick_group_tiled(
+        B, GROUPS_TILED, lambda G: tiled_smem_bytes(G, n, m, itemsize),
+        f"leg kernel at n={n}, m={m}")
 
 
 def pick_group(B, n, m, itemsize, tf32=False):

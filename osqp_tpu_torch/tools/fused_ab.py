@@ -137,11 +137,7 @@ def inputs(torch, dtype, n, m, seed=0):
 
 
 def bind(path):
-    lib = ctypes.CDLL(path)
-    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.osqp_admm_iterate.restype = i
-    lib.osqp_admm_iterate.argtypes = [i, i] + [vp] * 15 + [i] * 4 + [d, d, vp]
-    return lib
+    return _build.declare(ctypes.CDLL(path), ("osqp_admm_iterate",))
 
 
 def time_shape(torch, libs, shape, ablate):

@@ -3,9 +3,10 @@
 
 Run from the root of a checkout on a machine with an NVIDIA GPU::
 
-    python3 -m osqp_tpu_torch.tools.leg_ablation
+    python3 -m osqp_tpu_torch.tools.leg_ablation [--other ROOT]
 
-Each ablation is a copy of ``csrc/solve_kernel.cu`` with one part of the
+Each ablation is a copy of ``csrc/solve_kernel.cu``, with the tiled
+product of ``csrc/tiled_product.h`` written into it, with one part of the
 tiled route's iteration removed or changed (the FMAs, the inner loops'
 shared loads, the epilogues, the clip pass, the operator copies) or the
 ring's slices halved (a deeper ring does not fit: the block already uses
@@ -15,11 +16,16 @@ timed on one leg of the bench workload (B=4096, n=128, m=256, float32) in
 turns, with checks off so that every lane runs every iteration. A leg of
 100 iterations against one of 50 gives the time of one iteration. An
 ablated kernel computes wrong values; only its time means anything, and
-only next to the unablated kernel of the same run.
+only next to the unablated kernel of the same run. With ``--other ROOT``
+the same source of the checkout at ROOT (e.g. a ``git archive`` of the
+parent commit unpacked under the ignored ``osqp_tpu_torch/.build/``) is
+built the same way and timed among them, unablated, with its registers
+and spills: whether a change moved the leg.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import inspect
 import re
@@ -35,6 +41,7 @@ from ..ops import solve_kernel as SK
 from . import variants
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "solve_kernel.cu"
+HEADER = SOURCE.parent / "tiled_product.h"
 
 _FMA = "for (int j = 0; j < 4; ++j) acc[i][c * 4 + j] += av[i] * bv[j];"
 _EPI = "epi(i, lg * TM + i, c0 + cc + j, acc[i][q * 4 + j], pv[q][j][i]);"
@@ -68,8 +75,16 @@ ABLATIONS = [
 ]
 
 
-def variant_source(edits):
-    src = variants.edited(SOURCE.read_text(), edits)
+def variant_source(edits, source=SOURCE):
+    src = source.read_text()
+    header = source.parent / HEADER.name
+    if header.exists():
+        # the tiled product lives in a header: write it into the copy, so
+        # that the edits reach it
+        src = variants.edited(src, [(f'#include "{HEADER.name}"\n',
+                                     header.read_text().replace(
+                                         "#pragma once\n", ""))])
+    src = variants.edited(src, edits)
     # only the float32 tiled route at G=32: a short build
     src = src.replace(
         "if (tiled) return int(dispatch_tiled<double>(a, G, s));",
@@ -84,10 +99,15 @@ def variant_source(edits):
         flags=re.S)
 
 
-def build_all(workdir: Path):
-    """Build every ablation at once; returns {name: (library, report)}."""
-    built = variants.build({name: (variant_source(edits), SOURCE.parent)
-                            for name, edits in ABLATIONS}, workdir)
+def build_all(workdir: Path, other: Path | None = None):
+    """Build every ablation at once, and the other checkout's kernel when
+    ``other`` is given; returns {name: (library, report)}."""
+    sources = {name: (variant_source(edits), SOURCE.parent)
+               for name, edits in ABLATIONS}
+    if other is not None:
+        osrc = other.resolve() / "osqp_tpu_torch" / "csrc" / SOURCE.name
+        sources["other checkout"] = (variant_source([], osrc), osrc.parent)
+    built = variants.build(sources, workdir)
     libs = {}
     for name, (so, out) in built.items():
         regs = re.findall(r"Used (\d+) registers", out)
@@ -99,13 +119,8 @@ def build_all(workdir: Path):
 
 def launcher(lib_path):
     """The port's own ``_cuda_leg`` bound to another library."""
-    lib = ctypes.CDLL(lib_path)
-    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.osqp_admm_solve_shared.restype = i
-    lib.osqp_admm_solve_shared.argtypes = (
-        [i, i, i] + [vp] * 27 + [i] * 5 + [d, d, i, i] + [d] * 6 + [i, vp])
-    lib.osqp_cuda_error_string.restype = ctypes.c_char_p
-    lib.osqp_cuda_error_string.argtypes = [i]
+    lib = _build.declare(ctypes.CDLL(lib_path), (
+        "osqp_admm_solve_shared", "osqp_cuda_error_string"))
     src = inspect.getsource(SK._cuda_leg).replace(
         "from ._build import check_launch, load_library",
         "from osqp_tpu_torch.ops._build import check_launch").replace(
@@ -115,8 +130,11 @@ def launcher(lib_path):
     return ns["_cuda_leg"]
 
 
-def main():
+def main(argv=None):
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other", type=Path, help="root of another checkout")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("leg_ablation: no CUDA device", file=sys.stderr)
         return 2
@@ -127,7 +145,7 @@ def main():
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         t0 = time.perf_counter()
-        libs = build_all(Path(tmp))
+        libs = build_all(Path(tmp), opts.other)
         print(f"built {len(libs)} ablations in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         legs = {name: launcher(path) for name, (path, _) in libs.items()}

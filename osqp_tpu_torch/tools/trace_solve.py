@@ -5,11 +5,13 @@ Run on a machine with an NVIDIA GPU, with the package to trace on the
 path::
 
     PYTHONPATH=<root> python3 <root>/osqp_tpu_torch/tools/trace_solve.py \
-        [--paths shared,per-lane]
+        [--paths shared,per-lane,mixed]
 
 ``shared``: the bench workload (B=4096 QPs, n=128, m=256, eps 1e-3,
 float32, one P and A for the batch: ``BatchedSolver(kkt_mode="shared")``),
-three cold solves and three warm prepared re-solves. ``per-lane``: the same
+three cold solves and three warm prepared re-solves; ``mixed``: the same
+with ``Settings(mixed_precision=True)``, whose chunks run the iteration
+kernel in bf16, then in float32. ``per-lane``: the same
 generator with one P and A drawn per lane (``chip_smoke.py`` phase 7),
 three cold solves of ``BatchedSolver(kkt_mode="fused")``. Each kind runs
 once to warm up, then is traced with ``torch.profiler``; for each it
@@ -70,6 +72,13 @@ def per_lane_kinds(torch, solver_for, f32):
                                                               ud)}
 
 
+def mixed_kinds(torch, solver_for, f32):
+    """The shared-structure bench workload in mixed precision."""
+    kinds = shared_kinds(torch, lambda mode: solver_for(mode, True), f32)
+    return {k.replace("shared", "mixed-precision"): fn
+            for k, fn in kinds.items()}
+
+
 def main(argv=None):
     import torch
 
@@ -82,15 +91,17 @@ def main(argv=None):
     from osqp_tpu_torch.batch import BatchedSolver
     from osqp_tpu_torch.settings import Settings
 
-    def solver_for(kkt_mode):
+    def solver_for(kkt_mode, mixed=False):
         return BatchedSolver(Settings(eps_abs=1e-3, eps_rel=1e-3,
-                                      verbose=False, dtype=np.float32),
+                                      verbose=False, dtype=np.float32,
+                                      mixed_precision=mixed),
                              kkt_mode=kkt_mode, device="cuda")
 
     def f32(v):
         return torch.as_tensor(v, dtype=torch.float32, device="cuda")
 
-    makers = {"shared": shared_kinds, "per-lane": per_lane_kinds}
+    makers = {"shared": shared_kinds, "per-lane": per_lane_kinds,
+              "mixed": mixed_kinds}
     print(f"card: {torch.cuda.get_device_name(0)}")
     for path in args.paths.split(","):
         for kind, fn in makers[path](torch, solver_for, f32).items():

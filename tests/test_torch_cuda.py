@@ -16,6 +16,8 @@ cuBLAS); float32 and tf32: statuses identical, x within rtol 1e-3, atol
 tolerance. Solves in float64: statuses and iteration counts identical.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -217,6 +219,33 @@ def test_f32_solver_cuda_matches_cpu_statuses(dev, mp):
     assert (cpu.status.numpy() == C.SOLVED).all()
 
 
+@pytest.mark.parametrize("B,G", [(64, 1), (512, 4)])
+def test_f32_shared_solve_at_n768(dev, B, G):
+    """The leg kernel's group rule at n=768, m=1536: the tiled route's ring
+    does not widen as G falls, so a group fits (G=1 for 64 lanes, G=4 from
+    115 blocks of 4 up), and the solve on the kernel ends with the same
+    statuses as the same solve with every leg through the plain twin."""
+    n, m = 768, 1536
+    assert SK.pick_group(B, n, m, 4) == G
+    rng = np.random.RandomState(9)
+    Mx = rng.randn(n, n) / np.sqrt(n)
+    P = Mx.T @ Mx + 0.1 * np.eye(n)
+    A = rng.randn(m, n) / np.sqrt(n)
+    q = rng.randn(B, n)
+    c, w = 0.1 * rng.randn(B, m), 1.0 + rng.rand(B, m)
+    s = Settings(eps_abs=1e-3, eps_rel=1e-3, dtype=np.float32)
+    before = SK.admm_solve_shared.launches
+    gpu = BatchedSolver(s, kkt_mode="shared", device=dev).solve(
+        P, q, A, c - w, c + w)
+    assert SK.admm_solve_shared.launches > before
+    with mock.patch.object(SK, "_cuda_leg", SK.admm_solve_shared_reference):
+        plain = BatchedSolver(s, kkt_mode="shared", device=dev).solve(
+            P, q, A, c - w, c + w)
+    st = gpu.status.cpu().numpy()
+    np.testing.assert_array_equal(st, plain.status.cpu().numpy())
+    assert (st == C.SOLVED).all()
+
+
 # ---------------------------------------------------------------------------
 # the iteration kernel (csrc/shared_iter.cu) against its twin
 # ---------------------------------------------------------------------------
@@ -253,11 +282,23 @@ def _scale_err(k, p):
     return np.abs(k[ok] - p[ok]).max() / max(1.0, np.abs(p[ok]).max())
 
 
-@pytest.mark.parametrize("variant", ["f64", "f32", "lowp_f64", "lowp_f32",
-                                     "tf32"])
-def test_iterate_kernel_matches_plain(dev, variant):
+#: (variant, route) of the iteration kernel: every variant on the simple
+#: route, float32 also on the tiled route, lowp-float32 on the mma route
+_ITER_ROUTES = [("f64", "simple"), ("f32", "simple"), ("f32", "tiled"),
+                ("lowp_f64", "simple"), ("lowp_f32", "simple"),
+                ("lowp_f32", "mma"), ("tf32", "simple")]
+_ITER_TOL = {"f64": 1e-9, "lowp_f64": 1e-9, "f32": 1e-4, "tf32": 1e-4,
+             "lowp_f32": 1e-2}
+
+
+@pytest.mark.parametrize("n,m", [(16, 24), (40, 72)], ids=["16x24", "40x72"])
+@pytest.mark.parametrize("variant,route", _ITER_ROUTES,
+                         ids=[f"{v}-{r}" for v, r in _ITER_ROUTES])
+def test_iterate_kernel_matches_plain(dev, variant, route, n, m):
     """Ragged B (37 lanes in groups of 8), the last live group at 4 of 5,
-    and a NaN lane. Tolerances relative to max(1, max |x|): float64 and
+    and a NaN lane; n=40, m=72 is no multiple of the mma tile's 16. The
+    tiled and mma routes run their own groups and get the live prefix in
+    lanes (32). Tolerances relative to max(1, max |x|): float64 and
     lowp-float64 1e-9 (summation order only; the bf16 casts of float64
     values that agree to 1e-16 round alike); float32 and tf32 1e-4;
     lowp-float32 1e-2, since a float32 sum that differs in the last bit
@@ -265,32 +306,78 @@ def test_iterate_kernel_matches_plain(dev, variant):
     from osqp_tpu_torch.ops import shared_iter as SI
     dtype = torch.float64 if variant.endswith("f64") else torch.float32
     lowp, tf32 = variant.startswith("lowp"), variant == "tf32"
-    tol = {"f64": 1e-9, "lowp_f64": 1e-9, "f32": 1e-4, "tf32": 1e-4,
-           "lowp_f32": 1e-2}[variant]
-    ops, sigma, alpha = _iter_args(dev, dtype, 37, nan_lane=5)
-    before = SI.admm_iterate_shared.launches
-    k = SI._cuda_iterate(*ops, sigma, alpha, 25, 4, 8, lowp=lowp, tf32=tf32)
-    assert SI.admm_iterate_shared.launches == before + 1
+    ops, sigma, alpha = _iter_args(dev, dtype, 37, n=n, m=m, nan_lane=5)
+    before = SI.admm_iterate_shared.route_launches[route]
+    k = SI._cuda_iterate(*ops, sigma, alpha, 25, 4, 8, lowp=lowp, tf32=tf32,
+                         route=route)
+    assert SI.admm_iterate_shared.route_launches[route] == before + 1
     p = SI.admm_iterate_shared_reference(*ops, sigma, alpha, 25, 4, 8,
                                          lowp=lowp, tf32=tf32)
     torch.cuda.synchronize()
     for a, b in zip(k, p):
-        assert _scale_err(a, b) <= tol
+        assert _scale_err(a, b) <= _ITER_TOL[variant]
     assert torch.isnan(k[0][5]).all()
+    assert not torch.isnan(k[0][:5]).any() and not torch.isnan(k[0][6:]).any()
     # lanes of the skipped fifth group (32..36) come back as they went in
     assert torch.equal(k[0][32:], ops[8][32:])
     assert torch.equal(k[4][32:], ops[9][32:])
 
 
-def test_iterate_kernel_single_step_and_groups(dev):
+def test_mma_route_lays_out_the_operators(dev):
+    """The mma route's first kernel writes the bf16 operators as its blocks
+    hold them: [αR⁻¹ | αR⁻¹Aᵀ]ᵀ with one row per output column (the x
+    columns padded to a multiple of 8 rows, then the z columns), then Aᵀ
+    with one row per x column, rows of ``mma_ld`` values, each value
+    rounded to nearest even once, every pad zero."""
     from osqp_tpu_torch.ops import shared_iter as SI
-    ops, sigma, alpha = _iter_args(dev, torch.float64, 20, seed=1)
-    for G, K in ((1, 1), (16, 3), (2, 7)):
-        k = SI._cuda_iterate(*ops, sigma, alpha, K, -(-20 // G), G)
+    n, m = 13, 21
+    ops, sigma, alpha = _iter_args(dev, torch.float32, 20, n=n, m=m)
+    _, launch, prep, _ = SI._launch_plan(*ops, sigma, alpha, 3, 5, 4,
+                                         lowp=True, route="mma")
+    assert launch() == 0
+    torch.cuda.synchronize()
+    Rinv_a, A, RAt_a, scratch = prep
+    bf, nx = torch.bfloat16, 16
+    opt = torch.zeros((nx + 24, SI.mma_ld(n)), dtype=bf, device=dev)
+    opt[:n, :n] = Rinv_a.T.to(bf)
+    opt[nx:nx + m, :n] = RAt_a.T.to(bf)
+    at = torch.zeros((nx, SI.mma_ld(m)), dtype=bf, device=dev)
+    at[:n, :m] = A.T.to(bf)
+    want = torch.cat([opt.flatten(), at.flatten()]).view(torch.uint8)
+    assert torch.equal(scratch, want)
+
+
+@pytest.mark.parametrize("route", ["simple", "tiled", "mma"])
+def test_iterate_kernel_single_step_and_groups(dev, route, monkeypatch):
+    """K=1 (the snapshot is the input), short chunks and every group size
+    of the route: the simple route in float64 at G=1, 16, 2; the tiled
+    route in float32 at each of its groups (forced), and the mma route in
+    lowp-float32, both with a live prefix of 52 of 70 lanes, which ends
+    inside a block. Tolerances as above."""
+    from osqp_tpu_torch.ops import shared_iter as SI
+    if route == "simple":
+        dtype, lowp, tol, B = torch.float64, False, 1e-9, 20
+        cases = [(1, 1, 20, 1), (16, 3, 2, 16), (2, 7, 10, 2)]
+    elif route == "tiled":
+        dtype, lowp, tol, B = torch.float32, False, 1e-4, 70
+        cases = [(G, K, 13, 4) for G, K in ((32, 1), (32, 7), (16, 3),
+                                            (8, 2), (4, 1), (2, 3), (1, 2))]
+    else:
+        dtype, lowp, tol, B = torch.float32, True, 1e-2, 70
+        cases = [(16, K, lg, 4) for K, lg in ((1, 13), (2, 13), (5, 18))]
+    ops, sigma, alpha = _iter_args(dev, dtype, B, n=40, m=72, seed=1)
+    for G, K, live_groups, group in cases:
+        monkeypatch.setattr(SI, "tiled_group", lambda B, n, m, G=G: G)
+        k = SI._cuda_iterate(*ops, sigma, alpha, K, live_groups, group,
+                             lowp=lowp, route=route)
         p = SI.admm_iterate_shared_reference(*ops, sigma, alpha, K,
-                                             -(-20 // G), G)
+                                             live_groups, group, lowp=lowp)
         for a, b in zip(k, p):
-            assert _scale_err(a, b) <= 1e-9
+            assert _scale_err(a, b) <= tol, (G, K)
+        live = min(B, live_groups * group)
+        assert torch.equal(k[0][live:], ops[8][live:])
+        if K == 1:
+            assert torch.equal(k[3], ops[8])
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,8 @@ import jax.numpy as jnp
 
 from osqp_tpu.ops.shared_iter import admm_iterate_shared as jax_iterate
 from osqp_tpu_torch.ops import shared_iter as SI
+from osqp_tpu_torch.tools import iter_ab as IA
+from osqp_tpu_torch.tools import variants
 
 NAMES = ("x", "y", "z", "x_prev", "y_prev")
 
@@ -177,3 +179,145 @@ def test_pick_group_hopper_rule(B, n, m, itemsize, tf32, G):
 def test_pick_group_refuses_oversized_lane():
     with pytest.raises(ValueError, match="shared memory"):
         SI.pick_group(64, 4096, 8192, 8)
+
+
+# ---------------------------------------------------------------------------
+# the routes of the CUDA kernel: rule, layouts, operators (no card needed)
+# ---------------------------------------------------------------------------
+
+F32, F64 = torch.float32, torch.float64
+
+
+@pytest.mark.parametrize("n,m,dtype,mode,route", [
+    (128, 256, F32, "plain", "tiled"),
+    (16, 32, F32, "plain", "tiled"),         # n(n+m) = 768: tiled won
+    (16, 31, F32, "plain", "simple"),        # 752
+    (13, 21, F32, "plain", "simple"),        # 442: the simple route won
+    (128, 7592, F32, "plain", "tiled"),      # the tiled block's last fit
+    (128, 7593, F32, "plain", "simple"),     # one row more: G=1 is too big
+    (128, 256, F32, "lowp", "mma"),
+    (40, 72, F32, "lowp", "mma"),
+    (136, 256, F32, "lowp", "simple"),       # x columns past 128
+    (128, 264, F32, "lowp", "simple"),       # z columns past 256
+    (256, 512, F32, "lowp", "simple"),
+    (128, 256, F64, "lowp", "simple"),       # float64 sums: no tensor cores
+    (128, 256, F64, "plain", "simple"),
+    (128, 256, F32, "tf32", "simple"),
+])
+def test_pick_route_by_dtype_mode_and_shape(n, m, dtype, mode, route):
+    assert SI.pick_route(n, m, dtype, lowp=mode == "lowp",
+                         tf32=mode == "tf32") == route
+    if route == "tiled":
+        assert SI.tiled_smem_bytes(1, n, m) <= SI.SMEM_LIMIT
+    elif mode == "plain" and dtype == F32:
+        assert (SI.tiled_smem_bytes(1, n, m) > SI.SMEM_LIMIT
+                or n * (n + m) < 768)
+    assert SI.mma_fits(n, m) == (route == "mma" or (
+        mode != "lowp" or dtype != F32) and n <= 128 and m <= 256)
+
+
+def test_route_groups_at_the_bench_shape():
+    """G=32 for the tiled route (128 blocks, as the leg), 16 lanes a block
+    for the mma route, whose block keeps both bf16 operators."""
+    assert SI.tiled_group(4096, 128, 256) == 32
+    assert SI.tiled_smem_bytes(32, 128, 256) == 215104
+    assert SI.mma_ld(128) == 136 and SI.mma_ld(256) == 264
+    assert SI.mma_smem_bytes(128, 256) == 184960 <= SI.SMEM_LIMIT
+    # a small batch still fills as many SMs as it can
+    assert SI.tiled_group(256, 128, 256) == 2
+
+
+_LAYOUT_SHAPES = [(n, m) for n in (1, 8, 13, 40, 100, 128, 136, 768)
+                  for m in (1, 16, 21, 72, 256, 264, 1536)]
+_LAYOUT_MAIN = r"""
+#include <cstdio>
+#include "shared_iter_layout.h"
+using namespace iter_layout;
+int main() {
+  int n, m;
+  while (std::scanf("%d %d", &n, &m) == 2) {
+    std::printf("%d %d %zu %zu %d %d %d", n, m, mma_bytes(n, m),
+                opt_bytes(n, m) + at_bytes(n, m), mma_ld(n), mma_ld(m),
+                int(mma_shape_fits(n, m)));
+    for (int G = 32; G >= 1; G /= 2) std::printf(" %zu", tiled_bytes(G, n, m));
+    std::printf("\n");
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def iter_layout(tmp_path_factory):
+    """The layout functions of csrc/shared_iter_layout.h for every shape in
+    ``_LAYOUT_SHAPES``, from a program built with the host C++ compiler."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler to build "
+                    "csrc/shared_iter_layout.h")
+    csrc = Path(SI.__file__).resolve().parent.parent / "csrc"
+    tmp = tmp_path_factory.mktemp("iter_layout")
+    (tmp / "main.cpp").write_text(_LAYOUT_MAIN)
+    subprocess.run([cxx, "-std=c++17", "-I", str(csrc), "-o",
+                    str(tmp / "layout"), str(tmp / "main.cpp")], check=True)
+    out = subprocess.run([str(tmp / "layout")], check=True, text=True,
+                         capture_output=True,
+                         input="".join(f"{n} {m}\n" for n, m in
+                                       _LAYOUT_SHAPES)).stdout
+    rows = [list(map(int, line.split())) for line in out.splitlines()]
+    return {(n, m): rest for n, m, *rest in rows}
+
+
+@pytest.mark.parametrize("route", ["tiled", "mma"])
+def test_smem_bytes_equals_the_cuda_layout(iter_layout, route):
+    for n, m in _LAYOUT_SHAPES:
+        mma, ops, ldn, ldm, fits, *tiled = iter_layout[(n, m)]
+        if route == "mma":
+            assert SI.mma_smem_bytes(n, m) == mma, (n, m)
+            assert SI.mma_operator_bytes(n, m) == ops, (n, m)
+            assert (SI.mma_ld(n), SI.mma_ld(m)) == (ldn, ldm), (n, m)
+            # the wrapper adds the card's limit to the header's shape rule
+            assert SI.mma_fits(n, m) == (
+                bool(fits) and mma <= SI.SMEM_LIMIT), (n, m)
+        else:
+            for G, b in zip(SI.GROUPS_TILED, tiled):
+                assert SI.tiled_smem_bytes(G, n, m) == b, (G, n, m)
+
+
+def test_cuda_launcher_refuses_a_route_it_cannot_take():
+    """Before it loads anything: the tiled route runs plain float32, the
+    mma route lowp in float32 up to n=128, m=256."""
+    Rinv, A, rho, rho_inv, q, l, u, x, y, z = map(torch.as_tensor,
+                                                  _inputs(8))
+    ops = [Rinv, A, Rinv @ A.T, rho, rho_inv, q, l, u, x, y, z]
+    ops32 = [o.float() for o in ops]
+    with pytest.raises(TypeError, match="tiled route"):
+        SI._cuda_iterate(*ops32, 1e-6, 1.6, 25, 2, 4, lowp=True,
+                         route="tiled")
+    with pytest.raises(TypeError, match="mma route"):
+        SI._cuda_iterate(*ops32, 1e-6, 1.6, 25, 2, 4, route="mma")
+    with pytest.raises(TypeError, match="mma route"):
+        SI._cuda_iterate(*ops, 1e-6, 1.6, 25, 2, 4, lowp=True, route="mma")
+    with pytest.raises(ValueError, match="unknown route"):
+        SI._cuda_iterate(*ops32, 1e-6, 1.6, 25, 2, 4, route="wgmma")
+    for route, lowp in (("tiled", False), ("mma", True)):
+        with pytest.raises(ValueError, match="not on a CUDA device"):
+            SI._cuda_iterate(*ops32, 1e-6, 1.6, 25, 2, 4, lowp=lowp,
+                             route=route)
+    big = [torch.zeros(s) for s in [(136, 136), (8, 136), (136, 8), (8,),
+                                    (8,), (2, 136), (2, 8), (2, 8),
+                                    (2, 136), (2, 8), (2, 8)]]
+    with pytest.raises(ValueError, match="mma route"):
+        SI._cuda_iterate(*big, 1e-6, 1.6, 25, 1, 2, lowp=True, route="mma")
+
+
+@pytest.mark.parametrize("name", [name for name, _ in IA.ABLATIONS])
+def test_iter_ablation_matches_kernel_source(name):
+    """Each ablation of the measurement tool finds its text in the kernel
+    source, and its edits take out the part they name."""
+    edits = dict(IA.ABLATIONS)[name]
+    src = variants.edited(IA.SOURCE.read_text(), edits)
+    for old, new in edits:
+        assert new in src and old not in src

@@ -20,9 +20,11 @@ import jax.numpy as jnp
 from osqp_tpu import constants as C
 from osqp_tpu.ops.shared_iter import dot3 as jdot3, split_bf16 as jsplit
 from osqp_tpu.ops.solve_kernel import admm_solve_shared as jax_leg
+from osqp_tpu_torch.ops import _hopper
 from osqp_tpu_torch.ops import solve_kernel as SK
 from osqp_tpu_torch.ops.shared_iter import dot3, split_bf16
 from osqp_tpu_torch.tools import fused_ab as FA
+from osqp_tpu_torch.tools import iter_ab as IA
 from osqp_tpu_torch.tools import leg_ablation as LA
 from osqp_tpu_torch.tools import trace_solve
 
@@ -227,6 +229,27 @@ def test_tiled_route_fits_at_its_group(itemsize, G):
     assert SK.tiled_smem_bytes(32, 128, 256, 4) == 232000
 
 
+@pytest.mark.parametrize("n,m", [(768, 1536), (1024, 2048)])
+@pytest.mark.parametrize("tf32", [False, True], ids=["f32", "tf32"])
+def test_pick_group_fits_large_shapes(n, m, tf32):
+    """The tiled route's ring keeps rows of at most 384 values whatever G
+    is (a wider pass takes fewer rows a slice), so float32 and tf32 find a
+    group at shapes past the bench shape: G=4 in float32 at B=4096."""
+    G = SK.pick_group(4096, n, m, 4, tf32)
+    assert SK.tiled_smem_bytes(G, n, m, 4) <= SK.SMEM_LIMIT
+    if tf32:
+        assert SK.simple_smem_bytes(G, n, m, 4, True) <= SK.SMEM_LIMIT
+    else:
+        assert G == 4
+    assert _hopper.slice_width(n, m) == 384
+    # the ring is the same at every group; only the lane state grows
+    ring = 2 * 16 * 384 * 4
+    assert all(SK.tiled_smem_bytes(g, n, m, 4) > ring
+               for g in SK.GROUPS_TILED)
+    assert (_hopper.slice_width(128, 256) == 384
+            and _hopper.slice_width(8, 13) == 24)
+
+
 def test_tf32_rule_leaves_room_for_the_float32_legs():
     """Under tf32 the legs after the noise plateau run float32 on the tiled
     route at the tf32 group, so that group has to fit both routes."""
@@ -266,8 +289,9 @@ def test_leg_ablation_matches_kernel_source(name):
         assert new in src
 
 
-@pytest.mark.parametrize("tool", [LA, trace_solve, FA],
-                         ids=["leg_ablation", "trace_solve", "fused_ab"])
+@pytest.mark.parametrize("tool", [LA, trace_solve, FA, IA],
+                         ids=["leg_ablation", "trace_solve", "fused_ab",
+                              "iter_ab"])
 def test_measurement_tools_refuse_without_gpu(tool, capsys, monkeypatch):
     """The card measurements exit non-zero, and print no result, where
     there is no GPU."""
