@@ -42,16 +42,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the per-lane path — BatchedSolver(kkt_mode="fused").solve cold — checks
    every lane Solved, statuses equal to kkt_mode="inverse" on the same
    data, and 64 lanes in float64 numpy;
-8. prints one JSON line of the three kernels (launch counts of their own
-   paths, agreement with the twins, times, and the least time the card
-   could take for the same work), the nvidia-smi line, and last the device
-   line ``{"ok": true, "device": {...}}``.
+8. drives the rest of the solver's surface through its entry points:
+   (a) polish=True on phase 4's batch (a shared cold solve, whose polish
+   re-equilibrates every lane, and a prepared re-solve; every lane Solved,
+   the counts of status_polish 1 and -1, 64 polished lanes in float64
+   numpy, the peak device memory, the solve with and without polish in
+   turns, status_polish equal to the same solve with plain-twin legs on
+   the lanes of equal iterations) and on phase 7's batch (kkt_mode="fused"
+   against "inverse", both polished); (b) time_limit: 60 s on the shared
+   and fused paths (statuses equal to phases 4 and 7, the chunk count, the
+   limited and unlimited solves in turns) and 2 ms at eps 1e-13 with fixed
+   rho (lanes Time_limit_reached, none Running); (c) profile=True
+   (last_solve_time beside the solve's wall time); (d) the 48 S-size cells
+   of the float64 conformance column (osqp_tpu_torch/tools/conformance.py)
+   through kkt_mode "shared" and "fused" on the card, each status equal to
+   conformance.json's batched row;
+9. prints one JSON line of the three kernels (launch counts of their own
+   paths and of phase 8's, agreement with the twins, times, and the least
+   time the card could take for the same work), the nvidia-smi line, and
+   last the device line ``{"ok": true, "device": {...}}``.
 
-Each path (4, 6, 7) runs with every launch counter set to 0 just before it
-and read just after. Any failed check raises, so the exit code is non-zero
-and no device line is printed. Without a GPU, or outside a checkout, it
-exits non-zero too. The compiler's register/shared-memory report goes to
-the output directory beside the run (``out_dir`` in ``main``).
+Each path (4, 6, 7 and each of phase 8's) runs with every launch counter
+set to 0 just before it and read just after. Any failed check raises, so
+the exit code is non-zero and no device line is printed. Without a GPU,
+or outside a checkout, it exits non-zero too. The compiler's
+register/shared-memory report and phase 8's per-cell conformance lines go
+to the output directory beside the run (``out_dir`` in ``main``).
 """
 
 import functools
@@ -224,6 +240,236 @@ def leg_setup(torch, dtype, B, seed=SEED):
             torch.tensor(1.6, dtype=dtype), 100, 25,
             torch.tensor(EPS, dtype=dtype), torch.tensor(EPS, dtype=dtype))
     return args, dict(scal=scal, eps_pinf=1e-4, eps_dinf=1e-4)
+
+
+def dispatch_counter(BatchedSolver):
+    """Patch ``BatchedSolver._dispatch`` to count the solves (the chunks of
+    a time-limited solve) it runs."""
+    calls = []
+    real = BatchedSolver._dispatch
+
+    def counted(self, *a, **kw):
+        calls.append(1)
+        return real(self, *a, **kw)
+
+    return mock.patch.object(BatchedSolver, "_dispatch", counted), calls
+
+
+def in_turns(torch, fns, order):
+    """Wall times of the named solves, run in the given order."""
+    times = {k: [] for k in fns}
+    for k in order:
+        times[k].append(wall_ms(torch, fns[k], 1)[0])
+    return {k: [round(t, 2) for t in v] for k, v in times.items()}
+
+
+def phase8_surface(torch, C, BatchedSolver, Settings, reset_counts,
+                   counts, plain_legs, out_dir, shared, per_lane, ref4,
+                   ref7, idx):
+    """Phase 8: polish, time_limit and profile through the solver's
+    entry points at full width, then the float64 conformance cells on the
+    card. Returns the launches of each of its paths by kernel."""
+    from osqp_tpu_torch.tools import conformance as CF
+    P, q, A, l, u, Pd, qd, Ad, ld, ud = shared
+    Pp, qp, Ap, lp, up, Ppd, qpd, Apd, lpd, upd = per_lane
+    solver, cold = ref4
+    launches = {}
+
+    def settings(**kw):
+        return Settings(eps_abs=EPS, eps_rel=EPS, verbose=False,
+                        dtype=np.float32, **kw)
+
+    def shared_solve(s):
+        return s.solve(Pd, qd, Ad, ld, ud)
+
+    def lane_solve(s):
+        return s.solve(Ppd, qpd, Apd, lpd, upd)
+
+    # -- (a) polish at full width --
+    pol = BatchedSolver(settings(polish=True), kkt_mode="shared",
+                        device="cuda")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    pol_ms, pol_out = wall_ms(torch, lambda: shared_solve(pol), 1)
+    peak = torch.cuda.max_memory_allocated()
+    pol.prepare(Pd, Ad, q=qd)
+    prep_out = pol.solve_prepared(qd, ld, ud)
+    launches["polish"] = counts()
+    sp = pol_out.status_polish.cpu().numpy()
+    st = pol_out.status.cpu().numpy()
+    say(f"[8a] polished shared cold solve B={B_MAIN} f32: {pol_ms:.1f} ms, "
+        f"solved {int((st == C.SOLVED).sum())}/{B_MAIN}, status_polish 1: "
+        f"{int((sp == 1).sum())}, -1: {int((sp == -1).sum())}; prepared "
+        f"re-solve status_polish 1: "
+        f"{int((prep_out.status_polish == 1).sum())}; peak device memory "
+        f"{peak / 1e9:.3f} GB ({(peak - held) / 1e9:.3f} GB above the "
+        f"{held / 1e9:.3f} GB held before); launches {launches['polish']}")
+    require(np.all(st == C.SOLVED), "[8a] polished solve: not every lane "
+            "Solved")
+    require(bool((prep_out.status == C.SOLVED).all()),
+            "[8a] polished prepared re-solve: not every lane Solved")
+    require(launches["polish"]["admm_solve_shared"] > 0,
+            "[8a] the polished solve never launched the leg kernel")
+    residual_check("[8a]", pol_out, P, q, A, l, u, idx)
+    times = in_turns(torch, {"polish": lambda: shared_solve(pol),
+                             "no polish": lambda: shared_solve(solver)},
+                     ("polish", "no polish", "no polish", "polish"))
+    say(f"[8a] shared cold solve after the first, in turns: {times} ms")
+    with plain_legs():
+        pol_plain = shared_solve(pol)
+    same = (pol_out.iter == pol_plain.iter).cpu().numpy()
+    agree = (pol_plain.status_polish.cpu().numpy() == sp)
+    say(f"[8a] against plain-twin legs: statuses equal "
+        f"{bool((pol_plain.status == pol_out.status).all())}, equal "
+        f"iterations {same.mean():.4f}, status_polish equal on those "
+        f"lanes {agree[same].mean():.4f} (all lanes {agree.mean():.4f})")
+    require(bool((pol_plain.status == pol_out.status).all()),
+            "[8a] plain-twin legs: statuses differ")
+    require(bool(agree[same].all()), "[8a] plain-twin legs: status_polish "
+            "differs on lanes with equal iterations")
+    del pol_plain, prep_out
+    # float64: the regularized reduced matrix that float32 may fail to
+    # factor (delta 1e-6) factors, and the accepted polish shows
+    pol64 = BatchedSolver(Settings(eps_abs=EPS, eps_rel=EPS, verbose=False,
+                                   dtype=np.float64, polish=True),
+                          kkt_mode="shared", device="cuda")
+    p64_ms, p64 = wall_ms(torch, lambda: pol64.solve(P, q, A, l, u), 1)
+    sp64 = p64.status_polish.cpu().numpy()
+    say(f"[8a] the same polished solve in float64: {p64_ms:.1f} ms, solved "
+        f"{int((p64.status == C.SOLVED).sum())}/{B_MAIN}, status_polish 1: "
+        f"{int((sp64 == 1).sum())}, -1: {int((sp64 == -1).sum())}")
+    require(bool((p64.status == C.SOLVED).all()),
+            "[8a] float64 polished solve: not every lane Solved")
+    require((sp64 == 1).any(), "[8a] float64: no lane polished")
+    residual_check("[8a] f64 solve", p64, P, q, A, l, u, idx)
+    del p64
+
+    reset_counts()
+    fused_pol = BatchedSolver(settings(polish=True), kkt_mode="fused",
+                              device="cuda")
+    fp_ms, fp_out = wall_ms(torch, lambda: lane_solve(fused_pol), 1)
+    launches["polish_per_lane"] = counts()
+    ip_out = lane_solve(BatchedSolver(settings(polish=True),
+                                      kkt_mode="inverse", device="cuda"))
+    fsp, isp = (o.status_polish.cpu().numpy() for o in (fp_out, ip_out))
+    same = (fp_out.iter == ip_out.iter).cpu().numpy()
+    say(f"[8a] per-lane fused with polish: {fp_ms:.1f} ms, status_polish "
+        f"1: {int((fsp == 1).sum())}, -1: {int((fsp == -1).sum())}; against "
+        f"inverse with polish: statuses equal "
+        f"{bool((fp_out.status == ip_out.status).all())}, equal iterations "
+        f"{same.mean():.4f}, status_polish equal on those lanes "
+        f"{(fsp == isp)[same].mean():.4f} (all {(fsp == isp).mean():.4f}); "
+        f"launches {launches['polish_per_lane']}")
+    require(bool((fp_out.status == C.SOLVED).all()),
+            "[8a] per-lane polished solve: not every lane Solved")
+    require(bool((fp_out.status == ip_out.status).all()),
+            "[8a] fused and inverse statuses differ under polish")
+    require(bool((fsp == isp)[same].all()), "[8a] fused and inverse "
+            "status_polish differ on lanes with equal iterations")
+    require(launches["polish_per_lane"]["admm_iterate"] > 0,
+            "[8a] the polished per-lane solve never launched the fused "
+            "kernel")
+    residual_check("[8a] fused", fp_out, Pp, qp, Ap, lp, up, idx)
+    del fp_out, ip_out
+
+    # -- (b) time_limit --
+    limited = BatchedSolver(settings(time_limit=60.0), kkt_mode="shared",
+                            device="cuda")
+    patch, chunks = dispatch_counter(BatchedSolver)
+    reset_counts()
+    with patch:
+        tl_ms, tl_out = wall_ms(torch, lambda: shared_solve(limited), 1)
+    launches["time_limit"] = counts()
+    eq_it = float((tl_out.iter == cold.iter).float().mean())
+    say(f"[8b] shared solve, time_limit 60 s: {tl_ms:.1f} ms, {len(chunks)} "
+        f"chunk(s), statuses equal to phase 4 "
+        f"{bool((tl_out.status == cold.status).all())}, equal iterations "
+        f"{eq_it:.4f}; launches {launches['time_limit']}")
+    require(bool((tl_out.status == cold.status).all()),
+            "[8b] time-limited shared statuses differ from phase 4")
+    require(launches["time_limit"]["admm_solve_shared"] > 0,
+            "[8b] the time-limited solve never launched the leg kernel")
+    times = in_turns(torch, {"limited": lambda: shared_solve(limited),
+                             "unlimited": lambda: shared_solve(solver)},
+                     ("limited", "unlimited", "unlimited", "limited"))
+    say(f"[8b] shared cold solve after the first, in turns: {times} ms")
+
+    fused_lim = BatchedSolver(settings(time_limit=60.0), kkt_mode="fused",
+                              device="cuda")
+    patch, chunks = dispatch_counter(BatchedSolver)
+    reset_counts()
+    with patch:
+        tlf_ms, tlf_out = wall_ms(torch, lambda: lane_solve(fused_lim), 1)
+    launches["time_limit_per_lane"] = counts()
+    say(f"[8b] per-lane fused solve, time_limit 60 s: {tlf_ms:.1f} ms, "
+        f"{len(chunks)} chunk(s), statuses equal to phase 7 "
+        f"{bool((tlf_out.status == ref7.status).all())}, equal iterations "
+        f"{float((tlf_out.iter == ref7.iter).float().mean()):.4f}; "
+        f"launches {launches['time_limit_per_lane']}")
+    require(bool((tlf_out.status == ref7.status).all()),
+            "[8b] time-limited fused statuses differ from phase 7")
+    require(launches["time_limit_per_lane"]["admm_iterate"] > 0,
+            "[8b] the time-limited per-lane solve never launched the fused "
+            "kernel")
+    del tlf_out
+
+    limit = 2e-3
+    tight = BatchedSolver(Settings(eps_abs=1e-13, eps_rel=0.0,
+                                   verbose=False, dtype=np.float32,
+                                   adaptive_rho=False, max_iter=500000,
+                                   time_limit=limit),
+                          kkt_mode="shared", device="cuda")
+    tt_ms, tt_out = wall_ms(torch, lambda: shared_solve(tight), 1)
+    st_t = tt_out.status.cpu().numpy()
+    say(f"[8b] eps 1e-13 under time_limit {limit * 1e3:g} ms: wall "
+        f"{tt_ms:.2f} ms, Time_limit_reached "
+        f"{int((st_t == C.TIME_LIMIT_REACHED).sum())}/{B_MAIN}, running "
+        f"{int((st_t == C.RUNNING).sum())}, iterations "
+        f"{sorted(set(tt_out.iter.cpu().tolist()))}")
+    require((st_t == C.TIME_LIMIT_REACHED).any(),
+            "[8b] no lane reached the time limit")
+    require(not (st_t == C.RUNNING).any(), "[8b] a lane was left Running")
+
+    # -- (c) profile=True --
+    prof = BatchedSolver(settings(), kkt_mode="shared", device="cuda",
+                         profile=True)
+    pr_ms, _ = wall_ms(torch, lambda: shared_solve(prof), 1)
+    say(f"[8c] profile=True: last_solve_time {prof.last_solve_time * 1e3:.2f}"
+        f" ms beside wall_ms {pr_ms:.2f} ms of the same solve")
+    require(0.0 < prof.last_solve_time * 1e3 <= pr_ms,
+            "[8c] last_solve_time not within the solve's wall time")
+
+    # -- (d) the float64 conformance cells on the card --
+    log = []
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = CF.run_column(("shared", "fused"), "cuda", say=log.append)
+    conf_s = time.perf_counter() - t0
+    launches["conformance_f64"] = counts()
+    (out_dir / "conformance_f64.txt").write_text("\n".join(log) + "\n")
+    for mode in ("shared", "fused"):
+        mine = [r for r in rows if r["kkt_mode"] == mode]
+        say(f"[8d] f64 conformance, kkt_mode={mode}: "
+            f"{sum(r['ok'] for r in mine)}/{len(mine)} cells pass "
+            f"(statuses equal to conformance.json's batched column, Solved "
+            f"cells polished and within eps) in "
+            f"{sum(r['seconds'] for r in mine):.1f} s")
+    for r in rows:
+        if not r["ok"]:
+            say(f"[8d] FAIL {r['kkt_mode']} {r['kind']} {r['family']}: "
+                f"{r['status']} against {r['expected']}, polish "
+                f"{r.get('status_polish')}, residual {r.get('residual_ok')}"
+                f", certificate {r.get('cert_ok')}")
+    say(f"[8d] {len(rows)} cells in {conf_s:.1f} s (per cell in "
+        f"{out_dir / 'conformance_f64.txt'}); launches "
+        f"{launches['conformance_f64']}")
+    require(all(r["ok"] for r in rows), "[8d] a conformance cell failed")
+    require(launches["conformance_f64"]["admm_solve_shared"] > 0
+            and launches["conformance_f64"]["admm_iterate"] > 0,
+            "[8d] the conformance cells did not launch both kernels")
+    return launches
 
 
 def main():
@@ -726,6 +972,13 @@ def main():
         f"{[round(t, 1) for t in lane_t['fused']]} ms, inverse "
         f"{[round(t, 1) for t in lane_t['inverse']]} ms")
 
+    phase8 = phase8_surface(torch, C, BatchedSolver, Settings, reset_counts,
+                            counts, plain_legs, out_dir,
+                            shared=(P, q, A, l, u, Pd, qd, Ad, ld, ud),
+                            per_lane=(Pp, qp, Ap, lp, up, Ppd, qpd, Apd, lpd,
+                                      upd),
+                            ref4=(solver, cold), ref7=f_out, idx=idx)
+
     ir = iter_rows[iter_variant]
     iter_extra = {f"{v}_{key}": iter_rows[v][k2] for v in ("f32", "lowp")
                   for key, k2 in (("route", "route"), ("ms", "ms"),
@@ -752,7 +1005,8 @@ def main():
     for r in rows:
         # no single PyTorch call computes K ADMM iterations
         r.update(route="cuda", source="osqp_tpu_torch/csrc/" + r["source"],
-                 library_ms=None)
+                 library_ms=None,
+                 phase8_launches={k: v[r["name"]] for k, v in phase8.items()})
     say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {

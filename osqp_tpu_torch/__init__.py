@@ -4,7 +4,8 @@ The JAX package ``osqp_tpu`` stays the reference; this package ports it
 slice by slice and never imports jax. Ported so far: the batched engines
 of ``BatchedSolver`` — the shared-structure engine (``kkt_mode="shared"``,
 with its prepared workspace, rollouts and mixed precision) and the per-lane
-engine (``kkt_mode`` "inverse", "chol", "fused") — and their three kernels,
+engine (``kkt_mode`` "inverse", "chol", "fused"), with polish,
+``time_limit`` and ``profile`` in every mode — and their three kernels,
 hand-written in CUDA for Hopper (``csrc/``), each with a plain PyTorch twin
 that runs on the CPU.
 """

@@ -11,23 +11,32 @@ the adapted KKT factor across re-solves, the MPC and serving loop.
 whose lanes each have their own P and A in the per-lane engine
 (:mod:`osqp_tpu_torch.batch_core`); a 2-D P or A is broadcast to the batch.
 
+``Settings(polish=True)`` polishes Solved lanes (:mod:`osqp_tpu_torch.polish`):
+inside the per-lane solve on its own scaled data, and after the shared
+engine on a per-lane re-equilibration of P and A broadcast to the batch.
+``Settings(time_limit=...)`` runs the solve in chunks of iterations from
+the host and marks lanes still running at expiry Time_limit_reached;
+``profile=True`` records each solve's synced wall time.
+
 Solves run on the solver's device, the GPU unless the caller passes
 ``device="cpu"``. Not ported yet, and refused rather than served by another
-path: ``mesh``, ``polish`` and ``time_limit``.
+path: ``mesh``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import constants as C
-from .batch_core import KKT_MODES
+from .batch_core import KKT_MODES, merge_polish
 from .batch_core import solve_batch as _per_lane_solve
-from .core import dyn_from_settings, torch_dtype
+from .core import dyn_from_settings, scale_problem, torch_dtype
 from .linalg import precision_scope
+from .polish import polish
 from .settings import Settings
 from .shared_core import (
     FactorCache,
@@ -49,10 +58,19 @@ def _sanitize_starts(x0, y0):
             torch.where(finite, y0, torch.zeros_like(y0)))
 
 
+def _rebase(next_rho, k: int):
+    """The back-off's next permitted update, counted from the start of the
+    next chunk: a Python int (shared engine) or per-lane tensor."""
+    if torch.is_tensor(next_rho):
+        return torch.clamp(next_rho - k, min=0)
+    return max(next_rho - k, 0)
+
+
 def _nanfill(out: SolveOutput) -> SolveOutput:
     """Reference solution convention (src/interface.jl:184-210): x/y/z are
     NaN-filled when no solution is present; the certificates carry the
-    rays. Applied at the API boundary only."""
+    rays. Applied at the API boundary only: the chunked time-limited solve
+    and polish keep the raw iterates."""
     present = solution_present(out.status)[:, None]
     nan = float("nan")
     return out._replace(x=torch.where(present, out.x, nan),
@@ -109,10 +127,16 @@ class BatchedSolver:
     the settings' dtype. ``device`` defaults to "cuda", where the solve
     runs the Hopper kernels, and raises when no GPU is present; pass
     ``device="cpu"`` to run the plain PyTorch versions on the CPU.
+
+    ``profile=True`` records each :meth:`solve`'s wall time, ended by a
+    device sync, in ``last_solve_time`` (the batched analogue of
+    ``Info.solve_time``; per lane it is this / B). Off by default, since
+    the sync stops the host from running ahead of the device.
     """
 
     def __init__(self, settings: Optional[Settings] = None,
-                 kkt_mode: str = "inverse", device=None, mesh=None):
+                 kkt_mode: str = "inverse", device=None, mesh=None,
+                 profile: bool = False):
         if kkt_mode != "shared" and kkt_mode not in KKT_MODES:
             raise ValueError(f"kkt_mode {kkt_mode!r} not in "
                              f"{('shared',) + KKT_MODES}")
@@ -127,15 +151,8 @@ class BatchedSolver:
                                f"to run on the CPU)")
         self.settings = settings or Settings()
         self.kkt_mode = kkt_mode
-
-    def _check_supported(self):
-        s = self.settings
-        if s.polish:
-            raise NotImplementedError(
-                "polish is not ported yet (ROADMAP queue 1 item 5)")
-        if s.time_limit and s.time_limit > 0:
-            raise NotImplementedError(
-                "time_limit is not ported yet (ROADMAP queue 1 item 3)")
+        self.profile = bool(profile)
+        self.last_solve_time = 0.0
 
     def _dtype(self):
         return torch_dtype(self.settings.resolve_dtype())
@@ -175,34 +192,157 @@ class BatchedSolver:
         unscaled warm starts x0 (B,n), y0 (B,m). ``rho0`` overrides
         ``settings.rho`` for this solve (pass a previous solve's
         ``out.rho_estimate`` for warm-re-solve economics)."""
-        self._check_supported()
+        t0 = time.perf_counter()
         s = self.settings
         dtype = s.resolve_dtype()
         Pm, q, A, l, u = (self._t(v) for v in (Pm, q, A, l, u))
         B, n = q.shape
         m = l.shape[-1]
+        if self.kkt_mode == "shared" and (Pm.ndim != 2 or A.ndim != 2):
+            raise ValueError(
+                "kkt_mode='shared' requires one shared P (n,n) and "
+                "A (m,n) for the whole batch")
         x0, y0 = _sanitize_starts(*self._starts(x0, y0, B, n, m))
         dyn = dyn_from_settings(s, dtype)
         if rho0 is not None:
             dyn = dyn._replace(rho_bar=torch.tensor(
                 _rho_value(rho0), dtype=self._dtype()))
-        if self.kkt_mode != "shared":
-            # per-lane engine: a shared P / A is broadcast to the batch
-            data = QPData(P=Pm.expand(B, n, n), q=q, A=A.expand(B, m, n),
-                          l=l, u=u)
-            with precision_scope():
-                out = _per_lane_solve(data, dyn, s.scaling, x0, y0,
-                                      self.kkt_mode, tf32=s.tf32())
-            return _nanfill(out)
-        if Pm.ndim != 2 or A.ndim != 2:
-            raise ValueError(
-                "kkt_mode='shared' requires one shared P (n,n) and "
-                "A (m,n) for the whole batch")
+        if s.time_limit > 0:
+            out = self._solve_time_limited(Pm, q, A, l, u, x0, y0, dyn)
+        else:
+            out = self._dispatch(Pm, q, A, l, u, x0, y0, dyn,
+                                 do_polish=bool(s.polish))
+            if s.polish and self.kkt_mode == "shared":
+                out = self._apply_polish(Pm, A, q, l, u, dyn, out)
+            out = _nanfill(out)
+        if self.profile:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.last_solve_time = time.perf_counter() - t0
+        return out
+
+    def _delta(self):
+        return torch.tensor(self.settings.delta, dtype=self._dtype())
+
+    def _dispatch(self, Pm, q, A, l, u, x0, y0, dyn,
+                  do_polish: bool) -> SolveOutput:
+        """One solve of the batch on the configured engine; the per-lane
+        engine polishes inside it when ``do_polish``."""
+        s = self.settings
+        B, n = q.shape
+        m = l.shape[-1]
         with precision_scope():
-            out = solve_shared(Pm, A, q, l, u, dyn, s.scaling, x0, y0,
-                               adaptive=bool(s.adaptive_rho),
-                               lowp=s.mixed_precision, tf32=s.tf32())
-        return _nanfill(out)
+            if self.kkt_mode != "shared":
+                # per-lane engine: a shared P / A is broadcast to the batch
+                data = QPData(P=Pm.expand(B, n, n), q=q, A=A.expand(B, m, n),
+                              l=l, u=u)
+                return _per_lane_solve(
+                    data, dyn, s.scaling, x0, y0, self.kkt_mode,
+                    do_polish=do_polish, delta=self._delta(),
+                    refine_iters=int(s.polish_refine_iter), tf32=s.tf32())
+            return solve_shared(Pm, A, q, l, u, dyn, s.scaling, x0, y0,
+                                adaptive=bool(s.adaptive_rho),
+                                lowp=s.mixed_precision, tf32=s.tf32())
+
+    def _apply_polish(self, Pm, A, q, l, u, dyn, out) -> SolveOutput:
+        """Separate polish pass, after the shared engine or the chunked
+        time-limited solve: each lane is re-equilibrated, P and A broadcast
+        to the batch. The shared engine's scaling differs from it only by
+        positive diagonal factors, and polish reads ``out.ybar`` only
+        through its sign (the active-set guess), so the mismatch is
+        harmless."""
+        s = self.settings
+        B, n = q.shape
+        m = l.shape[-1]
+        sdata, scal = scale_problem(QPData(
+            P=Pm.expand(B, n, n), q=q, A=A.expand(B, m, n), l=l, u=u),
+            s.scaling)
+        pol = polish(sdata, scal, dyn, self._delta(),
+                     int(s.polish_refine_iter), out.ybar, out.pri_res,
+                     out.dua_res)
+        return merge_polish(out, pol)
+
+    def _solve_time_limited(self, Pm, q, A, l, u, x0, y0,
+                            dyn) -> SolveOutput:
+        """Chunked host loop for ``time_limit`` (reference contract
+        constants.jl:17-18): run chunks of iterations, read the clock
+        between chunks, and mark lanes still running at expiry
+        Time_limit_reached. KeyboardInterrupt after the first chunk maps to
+        Interrupted for the lanes still running.
+
+        A lane that finishes keeps the values of the chunk it finished in.
+        Chunk boundaries re-enter ADMM by warm start (z re-derived as Ax)
+        and resume the rho back-off state, so per-lane iteration counts can
+        differ slightly from an unchunked run; statuses do not."""
+        s = self.settings
+        max_iter = int(s.max_iter)
+        chunk = s.check_termination if s.check_termination > 0 else 25
+        chunk = max(int(chunk) * 8, 100)
+        start = time.perf_counter()
+
+        total = 0
+        out_acc = done = iters_acc = status_val = resume = None
+        xw, yw = x0, y0
+        try:
+            while total < max_iter:
+                this = min(chunk, max_iter - total)
+                is_final = total + this >= max_iter
+                dyn_c = dyn._replace(max_iter=this,
+                                     final_approx=1 if is_final else 0)
+                if resume is not None:
+                    # the back-off schedule persists across chunks; its
+                    # next update is counted from the chunk's start
+                    dyn_c = dyn_c._replace(rho_dir0=resume[0],
+                                           rho_gap0=resume[1],
+                                           next_rho0=resume[2])
+                out = self._dispatch(Pm, q, A, l, u, xw, yw, dyn_c,
+                                     do_polish=False)
+                resume = (out.rho_dir, out.rho_gap,
+                          _rebase(out.next_rho, this))
+                # the host copy waits for the chunk, so the clock below
+                # reads after its results exist
+                st = out.status.cpu().numpy()
+                it = out.iter.cpu().numpy().astype(np.int64)
+                if out_acc is None:
+                    out_acc = out
+                    done = np.zeros(st.shape, bool)
+                    iters_acc = np.zeros(st.shape, np.int64)
+                newly = ((~done) & (st != C.RUNNING)
+                         & (st != C.MAX_ITER_REACHED))
+                iters_acc = np.where(done, iters_acc, total + it)
+                # lanes done before this chunk keep their committed values
+                keep = torch.as_tensor(done, device=self.device)
+                keepc = keep[:, None]
+                out_acc = out_acc._replace(**{
+                    f: torch.where(keep if getattr(out, f).ndim == 1
+                                   else keepc, getattr(out_acc, f),
+                                   getattr(out, f))
+                    for f in ("x", "y", "z", "status", "pri_res", "dua_res",
+                              "obj_val", "prim_cert", "dual_cert", "xbar",
+                              "ybar", "zbar")})
+                done = done | newly
+                total += this
+                if np.all(done) or is_final:
+                    # the lanes not done keep the final chunk's
+                    # classification (approximate statuses included)
+                    break
+                if (time.perf_counter() - start) > s.time_limit:
+                    status_val = C.TIME_LIMIT_REACHED
+                    break
+                xw, yw = out.x, out.y
+        except KeyboardInterrupt:
+            if out_acc is None:
+                raise
+            status_val = C.INTERRUPTED
+        if status_val is not None:
+            out_acc = out_acc._replace(status=torch.where(
+                torch.as_tensor(done, device=self.device), out_acc.status,
+                status_val).to(torch.int32))
+        out_acc = out_acc._replace(iter=torch.as_tensor(
+            iters_acc, dtype=torch.int32, device=self.device))
+        if s.polish:
+            out_acc = self._apply_polish(Pm, A, q, l, u, dyn, out_acc)
+        return _nanfill(out_acc)
 
     # ------------------------------------------------------------------
     # Prepared-workspace mode (persistent factor across re-solves)
@@ -252,7 +392,6 @@ class BatchedSolver:
         ``y0`` (unscaled) warm-start; ``rho0`` overrides the carried rho."""
         if not hasattr(self, "_prep"):
             raise RuntimeError("call prepare(P, A) first")
-        self._check_supported()
         s = self.settings
         p = self._prep
         q, l, u = self._t(q), self._t(l), self._t(u)
@@ -269,6 +408,8 @@ class BatchedSolver:
                 adaptive=bool(s.adaptive_rho), lowp=s.mixed_precision,
                 tf32=s.tf32())
         p["factor"] = fac
+        if s.polish:
+            out = self._apply_polish(p["P"], p["A"], q, l, u, dyn, out)
         return _nanfill(out)
 
     def solve_rollout(self, q0, l0, u0, step_fn, n_steps: int,
@@ -281,11 +422,11 @@ class BatchedSolver:
         device, ``k`` a Python int). Warm starts and the adapted KKT factor
         carry from step to step. Returns a dict with per-step stacked
         ``status``/``iter``/``obj_val`` (shape (n_steps, B)), the final
-        ``x``/``y``, and ``xs`` (n_steps, B, n) when ``keep_xs``. Requires
-        :meth:`prepare`."""
+        ``x``/``y``, and ``xs`` (n_steps, B, n) when ``keep_xs``. Polish is
+        not applied inside rollouts (polish the final iterate separately if
+        needed), nor is ``time_limit``. Requires :meth:`prepare`."""
         if not hasattr(self, "_prep"):
             raise RuntimeError("call prepare(P, A) first")
-        self._check_supported()
         s = self.settings
         p = self._prep
         q, l, u = self._t(q0), self._t(l0), self._t(u0)

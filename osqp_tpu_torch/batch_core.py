@@ -30,6 +30,7 @@ from .core import (ResInfo, build_rho_vec, constraint_masks,
 from .linalg import chol_factor, with_precision
 from .ops.fused_iter import admm_iterate
 from .ops.shared_iter import dot3, split_bf16
+from .polish import polish
 from .types import DynParams, QPData, ScalingData, SolveOutput
 
 _DIV_GUARD = 1e-10
@@ -97,12 +98,16 @@ class _Adapt:
                                  kkt_mode)
         self.rho_estimate = self.rho_bar.clone()
         self.rho_updates = torch.zeros(B, dtype=torch.int32, device=dev)
+
         def i32(v):
-            return torch.full((B,), int(v), dtype=torch.int32, device=dev)
+            # a fresh start (Python int) or a resumed per-lane state ((B,))
+            return torch.as_tensor(v, dtype=torch.int32, device=dev).expand(
+                B).clone()
 
         self.rho_dir = i32(dyn.rho_dir0)
-        self.rho_gap = i32(dyn.rho_gap0 if dyn.rho_gap0 > 0
-                           else max(dyn.adaptive_rho_interval, 1))
+        gap0 = i32(dyn.rho_gap0)
+        self.rho_gap = torch.where(gap0 > 0, gap0,
+                                   max(dyn.adaptive_rho_interval, 1))
         self.next_rho = i32(dyn.next_rho0)
 
     def step(self, it: int, live, status, res: ResInfo):
@@ -347,13 +352,36 @@ def solve_batch_fused(sdata: QPData, scal: ScalingData, dyn: DynParams,
                      iters, pri_res, dua_res, it, ad)
 
 
+def merge_polish(out: SolveOutput, pol) -> SolveOutput:
+    """Merge a batched polish result into a SolveOutput by the C core's
+    acceptance rule: only lanes that Solved and whose polish succeeded take
+    the polished values; ``status_polish`` is 1 (polished), -1 (Solved,
+    polish rejected) or 0 (not Solved) per lane."""
+    solved = out.status == C.SOLVED
+    ok = pol.success & solved
+    okc = ok[:, None]
+    return out._replace(
+        x=torch.where(okc, pol.x, out.x),
+        y=torch.where(okc, pol.y, out.y),
+        z=torch.where(okc, pol.z, out.z),
+        obj_val=torch.where(ok, pol.obj_val, out.obj_val),
+        pri_res=torch.where(ok, pol.pri_res, out.pri_res),
+        dua_res=torch.where(ok, pol.dua_res, out.dua_res),
+        status_polish=torch.where(solved, torch.where(ok, 1, -1), 0).to(
+            torch.int32),
+    )
+
+
 def solve_batch(data: QPData, dyn: DynParams, scaling_iters: int, x0, y0,
-                kkt_mode: str = "inverse", tf32: bool = False) -> SolveOutput:
+                kkt_mode: str = "inverse", do_polish: bool = False,
+                delta=1e-6, refine_iters: int = 3,
+                tf32: bool = False) -> SolveOutput:
     """Scale every lane (Ruiz, ``scaling_iters`` rounds) and solve the
-    batch. All fields of ``data`` have a leading B; ``x0``/``y0`` are
-    unscaled starts. ``kkt_mode`` "inverse" (default) and "chol" iterate
-    in torch; "fused" runs the fused kernel, and ignores ``tf32`` as the
-    JAX package does."""
+    batch, then, with ``do_polish``, polish it on the solve's own scaled
+    data (no second equilibration). All fields of ``data`` have a leading
+    B; ``x0``/``y0`` are unscaled starts. ``kkt_mode`` "inverse" (default)
+    and "chol" iterate in torch; "fused" runs the fused kernel, and ignores
+    ``tf32`` as the JAX package does."""
     if kkt_mode not in KKT_MODES:
         raise ValueError(f"kkt_mode {kkt_mode!r} not in {KKT_MODES} "
                          f"(or 'shared')")
@@ -362,6 +390,12 @@ def solve_batch(data: QPData, dyn: DynParams, scaling_iters: int, x0, y0,
     yb = scal.c[:, None] * scal.Einv * y0
     zb = _bmm(sdata.A, xb)
     if kkt_mode == "fused":
-        return solve_batch_fused(sdata, scal, dyn, xb, yb, zb)
-    return solve_batch_scaled(sdata, scal, dyn, xb, yb, zb, kkt_mode,
-                              tf32=tf32)
+        out = solve_batch_fused(sdata, scal, dyn, xb, yb, zb)
+    else:
+        out = solve_batch_scaled(sdata, scal, dyn, xb, yb, zb, kkt_mode,
+                                 tf32=tf32)
+    if do_polish:
+        pol = polish(sdata, scal, dyn, delta, refine_iters, out.ybar,
+                     out.pri_res, out.dua_res)
+        out = merge_polish(out, pol)
+    return out

@@ -66,13 +66,16 @@ def dyn_to_torch(dyn, dtype) -> DynParams:
 
 
 def output_to_torch(out, device, dtype) -> SolveOutput:
-    """A JAX ``SolveOutput`` → the port's, e.g. to warm-start from it."""
+    """A JAX ``SolveOutput`` → the port's, e.g. to warm-start from it. The
+    back-off resume state stays a Python int where the shared engine gave
+    a scalar, and becomes (B,) int32 where the per-lane engine gave one per
+    lane, as the port's engines return them."""
     vals = {}
     for f in SolveOutput._fields:
         v = np.asarray(getattr(out, f))
-        if f in _OUT_SCALARS:
+        if f in _OUT_SCALARS and v.ndim == 0:
             vals[f] = int(v)
-        elif f in _OUT_INTS:
+        elif f in _OUT_INTS or f in _OUT_SCALARS:
             vals[f] = torch.tensor(v.astype(np.int32), device=device)
         else:
             vals[f] = _tensor(v, device, dtype)

@@ -6,7 +6,7 @@ decision (``:64-195``) and ``scale_problem`` (``:645``). Each takes a
 leading ``...`` batch axis on its data, so the per-lane batched engine
 (:mod:`osqp_tpu_torch.batch_core`) calls them once for the whole stack
 where the JAX package vmaps them; a single problem is the case of no batch
-axis. The single-problem engine itself is ROADMAP queue 1 item 5.
+axis. The single-problem engine itself is ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations

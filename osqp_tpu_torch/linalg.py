@@ -39,6 +39,12 @@ def with_precision(fn):
     return wrapper
 
 
+def sym(M):
+    """Symmetrize (..., n, n): guards tiny asymmetry from user input and
+    scaling rounding."""
+    return 0.5 * (M + M.mT)
+
+
 def chol_factor(R):
     """Lower-triangular Cholesky factor of R (..., n, n); each matrix that
     is not PD gets a NaN-filled factor, the others are unaffected.
@@ -46,7 +52,17 @@ def chol_factor(R):
     ``lax.linalg.cholesky`` NaN-fills a matrix that is not positive
     definite and the engine reports that as Non_convex; ``cholesky_ex``
     gives the same without raising and without a host sync."""
-    Rs = 0.5 * (R + R.mT)
-    L, info = torch.linalg.cholesky_ex(Rs)
+    L, info = torch.linalg.cholesky_ex(sym(R))
     return torch.where(info[..., None, None] == 0, L,
                        torch.full_like(L, float("nan")))
+
+
+def chol_solve(L, b):
+    """Solve R x = b given L = chol(R) (..., n, n), by two triangular
+    solves; b is (..., n) or (..., n, k)."""
+    vec = b.ndim == L.ndim - 1
+    if vec:
+        b = b[..., None]
+    w = torch.linalg.solve_triangular(L, b, upper=False)
+    x = torch.linalg.solve_triangular(L.mT, w, upper=True)
+    return x[..., 0] if vec else x

@@ -1,0 +1,218 @@
+#!/usr/bin/env python3
+"""The port's column of the conformance sweep (``scripts/conformance.py``).
+
+Runs ``BatchedSolver`` of the port (one lane, ``polish=True``) on the
+sweep's cells and holds each status to the ``batched`` engine's row of the
+float64 artifact ``conformance.json``::
+
+    python3 -m osqp_tpu_torch.tools.conformance [--device cpu|cuda]
+        [--kkt-modes inverse,shared,fused] [--sizes S]
+
+Cells, from the port's copy of the problem families: ``solved`` (each
+family at each size of ``SIZE_GRID``), and at size S ``primal_inf``,
+``dual_inf`` and ``non_convex``, built by copies of the script's
+constructors (its :285-313). Settings are the script's float64 column's:
+eps 1e-6 (``lp_qp`` 1e-3), max_iter 100000, polish on. A cell passes when
+its status equals the artifact's; a Solved cell must also have polished
+(``status_polish`` 1) and pass a float64 numpy residual check at its eps;
+an infeasible cell's certificate must pass the script's validity check
+(its :315-343). The script itself is not imported: it configures jax on
+import, and the port runs without jax. Prints one line per cell and the
+seconds each took; exits non-zero if a cell fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+from .. import constants as C
+from ..batch import BatchedSolver
+from ..problems import FAMILIES, SIZE_GRID
+from ..settings import Settings
+
+EPS = 1e-6
+#: pure LPs run at the reference's default eps with polish, as the sweep
+FAMILY_EPS = {"lp_qp": 1e-3}
+MAX_ITER = 100000
+KINDS = ("solved", "primal_inf", "dual_inf", "non_convex")
+ARTIFACT = Path(__file__).resolve().parents[2] / "conformance.json"
+
+
+def make_primal_infeasible(P, q, A, l, u):
+    """Contradictory duplicated row: append a'x <= 0 and a'x >= 1 for
+    a = A[0] (scaled to unit norm)."""
+    a = A[0] / max(np.max(np.abs(A[0])), 1e-12)
+    A2 = np.vstack([A, a, a])
+    l2 = np.concatenate([l, [-np.inf], [1.0]])
+    u2 = np.concatenate([u, [0.0], [np.inf]])
+    return P, q, A2, l2, u2
+
+
+def make_dual_infeasible(P, q, A, l, u):
+    """Unbounded LP transform: P -> 0, q -> -d with d = 1/sqrt(n), and the
+    bounds that block the d-ray relaxed."""
+    n = P.shape[0]
+    d = np.ones(n) / np.sqrt(n)
+    Ad = A @ d
+    u2 = np.where(Ad > 1e-9, np.inf, u)
+    l2 = np.where(Ad < -1e-9, -np.inf, l)
+    return np.zeros_like(P), -d, A, l2, u2
+
+
+def make_non_convex(P, q, A, l, u):
+    """Shift P indefinite: P - 1.2 lambda_max I."""
+    lam = float(np.linalg.eigvalsh(P)[-1])
+    lam = max(lam, 1.0)
+    return P - 1.2 * lam * np.eye(P.shape[0]), q, A, l, u
+
+
+def validate_farkas(A, l, u, dy, tol=1e-4):
+    """Oracle-free Farkas validity: ||A' dy|| small and
+    u'(dy)_+ + l'(dy)_- < 0 over finite bounds."""
+    dy = np.asarray(dy, float)
+    if not np.all(np.isfinite(dy)) or np.max(np.abs(dy)) < 1e-12:
+        return False
+    dy = dy / np.max(np.abs(dy))
+    if np.max(np.abs(A.T @ dy)) > tol:
+        return False
+    fu, fl = np.isfinite(u), np.isfinite(l)
+    val = (u[fu] @ np.maximum(dy, 0)[fu] + l[fl] @ np.minimum(dy, 0)[fl])
+    return val < -1e-9
+
+
+def validate_ray(P, q, A, l, u, dx, tol=1e-4):
+    """Dual-infeasibility ray validity: ||P dx|| small, q'dx < 0, A dx a
+    recession direction of [l, u]."""
+    dx = np.asarray(dx, float)
+    if not np.all(np.isfinite(dx)) or np.max(np.abs(dx)) < 1e-12:
+        return False
+    dx = dx / np.max(np.abs(dx))
+    if np.max(np.abs(P @ dx)) > tol or q @ dx >= -1e-9:
+        return False
+    Ad = A @ dx
+    ok_u = np.all(Ad[np.isfinite(u)] <= tol)
+    ok_l = np.all(Ad[np.isfinite(l)] >= -tol)
+    return bool(ok_u and ok_l)
+
+
+_MAKE = {"solved": lambda *d: d, "primal_inf": make_primal_infeasible,
+         "dual_inf": make_dual_infeasible, "non_convex": make_non_convex}
+
+
+def cell(kind, family, size="S"):
+    """(P, q, A, l, u) of one cell, float64 numpy."""
+    kw = dict(SIZE_GRID[family])[size]
+    return _MAKE[kind](*FAMILIES[family](**kw))
+
+
+def cells(sizes=("S",)):
+    """Every (kind, family, size) of the column: solved cells at each of
+    ``sizes``, the status cells at S."""
+    out = [("solved", f, s) for f in sorted(FAMILIES) for s in sizes]
+    if "S" in sizes:
+        out += [(k, f, "S") for f in sorted(FAMILIES) for k in KINDS[1:]]
+    return out
+
+
+def artifact_statuses(path=ARTIFACT):
+    """{(kind, family, size): status} of the artifact's ``batched`` rows."""
+    rows = json.loads(Path(path).read_text())["rows"]
+    return {(r["kind"], r["family"], r["size"]): r["status"]
+            for r in rows if r["engine"] == "batched"}
+
+
+def solve_cell(P, q, A, l, u, eps, kkt_mode, device):
+    """One lane through the port's BatchedSolver, float64, polish on."""
+    s = Settings(eps_abs=eps, eps_rel=eps, max_iter=MAX_ITER, verbose=False,
+                 polish=True, dtype=np.float64)
+    solver = BatchedSolver(s, kkt_mode=kkt_mode, device=device)
+    if kkt_mode == "shared":
+        return solver.solve(P, q[None], A, l[None], u[None])
+    return solver.solve(P[None], q[None], A[None], l[None], u[None])
+
+
+def residual_ok(P, q, A, l, u, x, y, z, eps):
+    """Float64 check of a solution at the termination rule's thresholds
+    (0.1% slack) and of z within [l, u]."""
+    Ax, Px, Aty = A @ x, P @ x, A.T @ y
+    inf = lambda v: float(np.max(np.abs(v))) if v.size else 0.0  # noqa
+    pri = inf(Ax - z)
+    dua = inf(Px + q + Aty)
+    ok = (pri <= 1.001 * (eps + eps * max(inf(Ax), inf(z)))
+          and dua <= 1.001 * (eps + eps * max(inf(Px), inf(Aty), inf(q))))
+    return bool(ok and np.all(z >= l - 1e-9) and np.all(z <= u + 1e-9))
+
+
+def check_cell(kind, family, size, kkt_mode, device, expected):
+    """Solve one cell and judge it. Returns a row dict with ``ok``."""
+    P, q, A, l, u = cell(kind, family, size)
+    eps = FAMILY_EPS.get(family, EPS)
+    t0 = time.perf_counter()
+    out = solve_cell(P, q, A, l, u, eps, kkt_mode, device)
+    sv = int(out.status[0])
+    seconds = time.perf_counter() - t0
+    status = C.STATUS_MAP.get(sv, f"status:{sv}")
+    row = dict(kind=kind, family=family, size=size, kkt_mode=kkt_mode,
+               status=status, expected=expected, iters=int(out.iter[0]),
+               seconds=seconds)
+    ok = status == expected
+    if kind == "solved":
+        row["status_polish"] = int(out.status_polish[0])
+        x, y, z = (v[0].double().cpu().numpy() for v in (out.x, out.y,
+                                                         out.z))
+        row["residual_ok"] = residual_ok(P, q, A, l, u, x, y, z, eps)
+        ok = ok and row["status_polish"] == 1 and row["residual_ok"]
+        row["x"] = x
+    elif kind == "primal_inf":
+        row["cert_ok"] = bool(validate_farkas(
+            A, l, u, out.prim_cert[0].cpu().numpy()))
+        ok = ok and row["cert_ok"]
+    elif kind == "dual_inf":
+        row["cert_ok"] = bool(validate_ray(
+            P, q, A, l, u, out.dual_cert[0].cpu().numpy()))
+        ok = ok and row["cert_ok"]
+    row["ok"] = bool(ok)
+    return row
+
+
+def run_column(kkt_modes, device, sizes=("S",), artifact=ARTIFACT,
+               say=print):
+    """Every cell on every kkt_mode; returns the rows."""
+    expected = artifact_statuses(artifact)
+    rows = []
+    for kkt_mode in kkt_modes:
+        for kind, family, size in cells(sizes):
+            row = check_cell(kind, family, size, kkt_mode, device,
+                             expected[(kind, family, size)])
+            rows.append(row)
+            say(f"{kkt_mode:8s} {kind:10s} {family:18s} {size} "
+                f"{row['status']:18s} (artifact {row['expected']}) it="
+                f"{row['iters']} polish={row.get('status_polish', '-')} "
+                f"cert={row.get('cert_ok', '-')} "
+                f"{row['seconds']:.2f}s {'OK' if row['ok'] else 'FAIL'}")
+    return rows
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kkt-modes", default="inverse")
+    ap.add_argument("--sizes", default="S")
+    a = ap.parse_args(argv)
+    t0 = time.perf_counter()
+    rows = run_column(a.kkt_modes.split(","), a.device,
+                      tuple(a.sizes.split(",")))
+    n_ok = sum(r["ok"] for r in rows)
+    print(f"{n_ok}/{len(rows)} cells pass on {a.device} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return 0 if n_ok == len(rows) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
 """The port's ``BatchedSolver`` (shared mode) with the JAX ``BatchedSolver``
 as the reference: ports of the shared-engine tests of ``test_fused.py``
-and of ``test_prepared.py`` (all but polish, which is not ported yet), the
-API-boundary helpers, and the port's import boundary.
+and of ``test_prepared.py`` (its polish case is in
+``test_torch_polish.py``), the API-boundary helpers, and the port's import
+boundary.
 """
 
 import subprocess
@@ -380,17 +381,6 @@ def test_nanfill_keeps_present_solutions():
                       dtype=torch.int32)
     out = _nanfill(SolveOutput(z, z, z, st, *([None] * 11)))
     assert not torch.isnan(out.x[:2]).any() and torch.isnan(out.x[2]).all()
-
-
-@pytest.mark.parametrize("kw", [dict(polish=True), dict(time_limit=1.0)],
-                         ids=["polish", "time_limit"])
-def test_unported_settings_refuse(kw):
-    P, q, A, l, u = _batch(B=2, n=4, m=6)
-    solver = BatchedSolver(Settings(**_kw(**kw)), **CPU_SHARED)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.solve(P, q, A, l, u)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.prepare(P, A).solve_prepared(q, l, u)
 
 
 def test_mesh_refuses():

@@ -13,7 +13,10 @@ instantiated in float64 too): statuses and iteration counts identical,
 floats within rtol 1e-9, atol 1e-12 (the kernel sums in another order than
 cuBLAS); float32 and tf32: statuses identical, x within rtol 1e-3, atol
 1e-4. The iteration and fused kernels: each test states its
-tolerance. Solves in float64: statuses and iteration counts identical.
+tolerance. Solves in float64: statuses and iteration counts identical;
+polished solves against the same solve through the plain twins also
+``status_polish`` identical and x, y within atol 1e-9, and time-limited
+solves the unlimited solve's statuses.
 """
 
 from unittest import mock
@@ -560,3 +563,60 @@ def test_mixed_precision_solve_cuda_matches_cpu_f64(dev):
     for f in ("status", "iter"):
         np.testing.assert_array_equal(getattr(gpu, f).cpu().numpy(),
                                       getattr(cpu, f).numpy(), err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# polish, time_limit and profile on the card (float64)
+# ---------------------------------------------------------------------------
+
+def _engine_case(mode):
+    """A B=64 batch for the shared engine (one P, A) or the fused per-lane
+    engine, with the launcher of that engine's kernel and its plain twin."""
+    from osqp_tpu_torch.ops import fused_iter as FI
+    if mode == "shared":
+        return (_staggered(64, 12, 20, seed=8), SK.admm_solve_shared,
+                mock.patch.object(SK, "_cuda_leg",
+                                  SK.admm_solve_shared_reference))
+    return (_per_lane(64, 12, 20, seed=8), FI.admm_iterate,
+            mock.patch.object(FI, "_cuda_iterate",
+                              FI.admm_iterate_reference))
+
+
+@pytest.mark.parametrize("mode", ["shared", "fused"])
+def test_polish_on_card_matches_plain_twin(dev, mode):
+    """Polish after the kernel's solve against the same solve with every
+    leg or chunk through the plain twin: statuses, iterations and
+    status_polish identical, x and y within atol 1e-9."""
+    (P, q, A, l, u), kernel, plain = _engine_case(mode)
+    s = Settings(eps_abs=1e-5, eps_rel=1e-5, dtype=np.float64, polish=True)
+    before = kernel.launches
+    got = BatchedSolver(s, kkt_mode=mode, device=dev).solve(P, q, A, l, u)
+    assert kernel.launches > before
+    with plain:
+        ref = BatchedSolver(s, kkt_mode=mode, device=dev).solve(
+            P, q, A, l, u)
+    for f in ("status", "iter", "status_polish"):
+        np.testing.assert_array_equal(getattr(got, f).cpu().numpy(),
+                                      getattr(ref, f).cpu().numpy(),
+                                      err_msg=f)
+    assert (got.status_polish.cpu().numpy() == 1).mean() > 0.9
+    for f in ("x", "y"):
+        np.testing.assert_allclose(getattr(got, f).cpu().numpy(),
+                                   getattr(ref, f).cpu().numpy(), rtol=0,
+                                   atol=1e-9, err_msg=f)
+
+
+@pytest.mark.parametrize("mode", ["shared", "fused"])
+def test_time_limit_on_card_matches_unlimited_statuses(dev, mode):
+    (P, q, A, l, u), kernel, _ = _engine_case(mode)
+    s = dict(eps_abs=1e-6, eps_rel=1e-6, dtype=np.float64)
+    free = BatchedSolver(Settings(**s), kkt_mode=mode, device=dev).solve(
+        P, q, A, l, u)
+    before = kernel.launches
+    timed = BatchedSolver(Settings(time_limit=60.0, **s), kkt_mode=mode,
+                          device=dev, profile=True)
+    got = timed.solve(P, q, A, l, u)
+    assert kernel.launches > before
+    np.testing.assert_array_equal(got.status.cpu().numpy(),
+                                  free.status.cpu().numpy())
+    assert 0.0 < timed.last_solve_time < 60.0
