@@ -57,25 +57,47 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    of the float64 conformance column (osqp_tpu_torch/tools/conformance.py)
    through kkt_mode "shared" and "fused" on the card, each status equal to
    conformance.json's batched row;
-9. prints one JSON line of the three kernels (launch counts of their own
-   paths and of phase 8's, agreement with the twins, times, and the least
-   time the card could take for the same work), the nvidia-smi line, and
-   last the device line ``{"ok": true, "device": {...}}``.
+9. drives the single-problem ``Model`` (osqp_tpu_torch/interface.py),
+   whose loop is torch calls and no hand kernel: (a) the 48 S-size cells
+   and the 12 update cells (solve, update(q, l, u), warm re-solve) of the
+   float64 conformance sweep through its torch-direct and torch-cg
+   columns, each status equal to conformance.json's jax-direct or jax-cg
+   row; (b) the 12 L-size solved cells through torch-direct in float64,
+   polished, with a float64 numpy residual check and the interior-point
+   oracle's objective and x gates (the oracle runs in two worker
+   processes started before the build); (c) the MPC loop on control_qp L
+   (n=960, m=1600) in float32 at eps 1e-3 (osqp_tpu_torch/tools/
+   mpc_loop.py): setup, a cold solve, 20 steps of update(q, l, u) and a
+   warm solve, their times, iterations and time per ADMM iteration, and
+   one warm step traced with torch.profiler for the device's idle share;
+   (d) chain_qp L cold in float64 and float32, and control_qp L through
+   the block-Jacobi CG path; (e) matmul_precision="tensorfloat32" against
+   float32 on two L cells, statuses equal; (f) a SIGINT fired by a timer
+   into an unending LP solve, which returns Interrupted; it checks that
+   the phase launched none of the three kernels;
+10. prints one JSON line of the three kernels (launch counts of their own
+   paths and of phases 8 and 9, agreement with the twins, times, and the
+   least time the card could take for the same work), the nvidia-smi
+   line, and last the device line ``{"ok": true, "device": {...}}``.
 
-Each path (4, 6, 7 and each of phase 8's) runs with every launch counter
-set to 0 just before it and read just after. Any failed check raises, so
-the exit code is non-zero and no device line is printed. Without a GPU,
-or outside a checkout, it exits non-zero too. The compiler's
-register/shared-memory report and phase 8's per-cell conformance lines go
-to the output directory beside the run (``out_dir`` in ``main``).
+Each path (4, 6, 7, each of phase 8's and phase 9) runs with every launch
+counter set to 0 just before it and read just after. Any failed check
+raises, so the exit code is non-zero and no device line is printed.
+Without a GPU, or outside a checkout, it exits non-zero too. The
+compiler's register/shared-memory report, phase 8's and phase 9's
+per-cell conformance lines and phase 9's numbers (model_phase.json) go to
+the output directory beside the run (``out_dir`` in ``run``).
 """
 
 import functools
 import json
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from unittest import mock
@@ -471,6 +493,222 @@ def phase8_surface(torch, C, BatchedSolver, Settings, reset_counts,
             "[8d] the conformance cells did not launch both kernels")
     return launches
 
+def start_oracles():
+    """The interior-point oracle (numpy) of the 12 L solved cells of the
+    conformance sweep, in two spawned worker processes of two BLAS threads
+    each, started before the build so that they overlap it; phase 9 reads
+    them. Returns (pool, {family: future})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from osqp_tpu_torch.tools import conformance as CF
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
+                                            "OPENBLAS_NUM_THREADS",
+                                            "MKL_NUM_THREADS")}
+    os.environ.update(dict.fromkeys(saved, "2"))
+    try:
+        pool = ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn"))
+        futures = {f: pool.submit(CF.cell_oracle, f, "L")
+                   for f in sorted(CF.FAMILIES)}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return pool, futures
+
+
+def phase9_model(torch, reset_counts, counts, out_dir, oracles):
+    """Phase 9: the single-problem ``Model`` through its entry points.
+    Returns (launches of the three kernels over the phase, the numbers it
+    measured)."""
+    from osqp_tpu_torch.interface import Model
+    from osqp_tpu_torch.tools import conformance as CF
+    from osqp_tpu_torch.tools.mpc_loop import L_SIZE, MPCLoop
+    from osqp_tpu_torch.tools.trace_solve import profile_runs
+
+    log, nums = [], {}
+    reset_counts()
+    t_phase = time.perf_counter()
+
+    # -- (a) the S and update cells of both Model columns, float64 --
+    t0 = time.perf_counter()
+    rows = CF.run_model_columns(("torch-direct", "torch-cg"), "cuda",
+                                say=log.append)
+    nums["s_cells_s"] = time.perf_counter() - t0
+    for col in ("torch-direct", "torch-cg"):
+        mine = [r for r in rows if r["column"] == col]
+        say(f"[9a] {col} S and update cells, float64: "
+            f"{sum(r['ok'] for r in mine)}/{len(mine)} pass (statuses equal "
+            f"to conformance.json's {CF.MODEL_COLUMNS[col][1]} column) in "
+            f"{sum(r['seconds'] for r in mine):.1f} s")
+    for r in rows:
+        if not r["ok"]:
+            say(f"[9a] FAIL {r['column']} {r['kind']} {r['family']}: "
+                f"{r['status']} against {r['expected']}")
+    require(all(r["ok"] for r in rows), "[9a] a Model S cell failed")
+
+    # -- (b) the 12 L solved cells through torch-direct, float64 --
+    expected = CF.artifact_statuses(engine="jax-direct")
+    t0 = time.perf_counter()
+    l_rows = []
+    for fam in sorted(CF.FAMILIES):
+        row = CF.check_model_cell("solved", fam, "L", "torch-direct", "cuda",
+                                  expected[("solved", fam, "L")])
+        P, q, A, l, u = CF.cell("solved", fam, "L")
+        obj_err, x_err, gates = CF.oracle_gates(
+            P, q, A, l, u, row["x"], fam, oracle=oracles[fam].result())
+        row.update(obj_err=obj_err, x_err=x_err, ok=row["ok"] and gates)
+        l_rows.append(row)
+        log.append(f"torch-direct solved {fam:18s} L n={P.shape[0]} "
+                   f"m={A.shape[0]} {row['status']} it={row['iters']} "
+                   f"polish={row['status_polish']} obj_err={obj_err:.1e} "
+                   f"x_err={x_err:.1e} {row['seconds']:.2f}s "
+                   f"{'OK' if row['ok'] else 'FAIL'}")
+    nums["l_cells_s"] = time.perf_counter() - t0
+    (out_dir / "conformance_model.txt").write_text("\n".join(log) + "\n")
+    say(f"[9b] torch-direct L solved cells, float64: "
+        f"{sum(r['ok'] for r in l_rows)}/12 pass (statuses, polish, "
+        f"float64 residuals, oracle objective and x) in "
+        f"{nums['l_cells_s']:.1f} s; per cell in "
+        f"{out_dir / 'conformance_model.txt'}")
+    for r in l_rows:
+        if not r["ok"]:
+            say(f"[9b] FAIL {r['family']}: {r['status']}, polish "
+                f"{r['status_polish']}, residual {r['residual_ok']}, "
+                f"obj_err {r['obj_err']:.2e}, x_err {r['x_err']:.2e}")
+    require(all(r["ok"] for r in l_rows), "[9b] an L cell failed")
+
+    # -- (c) the MPC loop: control_qp L, float32, eps 1e-3 --
+    loop = MPCLoop(**L_SIZE)
+    P, q, A, l, u = loop.problem()
+    kw = dict(eps_abs=1e-3, eps_rel=1e-3, verbose=False, dtype=np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Model(device="cuda").setup(P=P, q=q, A=A, l=l, u=u, **kw)
+    torch.cuda.synchronize()
+    nums["mpc_setup_ms"] = (time.perf_counter() - t0) * 1e3
+    nums["mpc_cold_ms"], r = wall_ms(torch, model.solve, 1)
+    require(r.info.status == "Solved", "[9c] MPC cold solve not Solved")
+    cold_iter = r.info.iter
+    upd_ms, warm_ms, warm_it = [], [], []
+    for _ in range(20):
+        qk, lk, uk = loop.step(r.x)
+        t, _ = wall_ms(torch, lambda: model.update(q=qk, l=lk, u=uk), 1)
+        upd_ms.append(t)
+        t, r = wall_ms(torch, model.solve, 1)
+        require(r.info.status == "Solved", "[9c] MPC warm solve failed")
+        warm_ms.append(t)
+        warm_it.append(r.info.iter)
+    per_it = [t / k for t, k in zip(warm_ms, warm_it)]
+
+    def warm_step():
+        qk, lk, uk = loop.step(last[0].x)
+        model.update(q=qk, l=lk, u=uk)
+        last[0] = model.solve()
+        return last[0]
+
+    last = [r]
+    _, walls, busy_ms, by_name = profile_runs(torch, warm_step)
+    wall = statistics.median(walls)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    nums.update(mpc_update_ms=upd_ms, mpc_warm_ms=warm_ms,
+                mpc_warm_iters=warm_it, mpc_cold_iters=cold_iter,
+                mpc_ms_per_iter=statistics.median(per_it),
+                mpc_traced_wall_ms=walls, mpc_busy_ms=busy_ms,
+                mpc_idle=max(0.0, 1 - busy_ms / wall),
+                mpc_top_kernels=[(k[:80], t, c) for k, (t, c) in top])
+    say(f"[9c] MPC loop, control_qp L (n={P.shape[0]}, m={A.shape[0]}), "
+        f"float32, eps 1e-3: setup {nums['mpc_setup_ms']:.1f} ms, cold "
+        f"solve {nums['mpc_cold_ms']:.1f} ms ({cold_iter} iterations); 20 "
+        f"steps of update(q, l, u) (median {statistics.median(upd_ms):.2f}"
+        f" ms) and a warm solve: median {statistics.median(warm_ms):.2f} "
+        f"ms, highest {max(warm_ms):.2f} ms, iterations {warm_it}; "
+        f"{nums['mpc_ms_per_iter']:.3f} ms an ADMM iteration")
+    say(f"[9c] one warm solve traced (torch.profiler, 3 steps): wall "
+        f"{[round(w, 2) for w in walls]} ms, device busy {busy_ms:.3f} ms "
+        f"a step, idle share {nums['mpc_idle']:.2f}; kernels by device "
+        f"time: " + "; ".join(f"{k[:48]} {t:.3f} ms x{c:.0f}"
+                              for k, (t, c) in top))
+
+    # -- (d) chain_qp L cold in float64 and float32; an indirect L cell --
+    P, q, A, l, u = CF.cell("solved", "chain_qp", "L")
+    for dt, eps in ((np.float64, 1e-6), (np.float32, 1e-3)):
+        m_ = Model(device="cuda").setup(P=P, q=q, A=A, l=l, u=u,
+                                        eps_abs=eps, eps_rel=eps,
+                                        verbose=False, dtype=dt)
+        t, rr = wall_ms(torch, m_.solve, 1)
+        name = np.dtype(dt).name
+        nums[f"chain_L_{name}"] = dict(ms=t, status=rr.info.status,
+                                       iters=rr.info.iter)
+        say(f"[9d] chain_qp L (n={P.shape[0]}, m={A.shape[0]}) cold, "
+            f"{name}, eps {eps:g}: {rr.info.status}, {rr.info.iter} "
+            f"iterations, {t:.1f} ms")
+        require(rr.info.status == "Solved", f"[9d] chain_qp L {name}")
+    cg_exp = CF.artifact_statuses(engine="jax-cg")[("solved", "control_qp",
+                                                   "L")]
+    row = CF.check_model_cell("solved", "control_qp", "L", "torch-cg",
+                              "cuda", cg_exp)
+    Pc, qc, Ac, lc, uc = CF.cell("solved", "control_qp", "L")
+    obj_err, x_err, gates = CF.oracle_gates(
+        Pc, qc, Ac, lc, uc, row["x"], "control_qp",
+        oracle=oracles["control_qp"].result())
+    nums["cg_control_L"] = dict(s=row["seconds"], status=row["status"],
+                                iters=row["iters"], obj_err=obj_err,
+                                x_err=x_err)
+    say(f"[9d] control_qp L through torch-cg (block-Jacobi CG), float64: "
+        f"{row['status']} (artifact {cg_exp}), {row['iters']} iterations, "
+        f"polish {row['status_polish']}, obj_err {obj_err:.1e}, x_err "
+        f"{x_err:.1e}, {row['seconds']:.2f} s")
+    require(row["ok"] and gates, "[9d] the indirect L cell failed")
+
+    # -- (e) tensorfloat32 against float32 --
+    for fam in ("control_qp", "chain_qp"):
+        P, q, A, l, u = CF.cell("solved", fam, "L")
+        st = {}
+        for mp in ("float32", "tensorfloat32"):
+            m_ = Model(device="cuda").setup(
+                P=P, q=q, A=A, l=l, u=u, eps_abs=1e-3, eps_rel=1e-3,
+                verbose=False, dtype=np.float32, matmul_precision=mp)
+            t, rr = wall_ms(torch, m_.solve, 1)
+            st[mp] = (rr.info.status, rr.info.iter, round(t, 1))
+        nums[f"tf32_{fam}_L"] = st
+        say(f"[9e] {fam} L cold, float32 against tensorfloat32 (status, "
+            f"iterations, ms): {st['float32']} / {st['tensorfloat32']}")
+        require(st["float32"][0] == st["tensorfloat32"][0],
+                f"[9e] {fam}: tf32 status differs from float32")
+
+    # -- (f) SIGINT into an unending LP solve --
+    P, q, A, l, u = CF.cell("solved", "lp_qp", "S")
+    m_ = Model(device="cuda").setup(P=P, q=q, A=A, l=l, u=u, eps_abs=1e-14,
+                                    eps_rel=1e-14, max_iter=2_000_000,
+                                    polish=False, verbose=False,
+                                    dtype=np.float64)
+    timer = threading.Timer(2.0, lambda: signal.raise_signal(signal.SIGINT))
+    t0 = time.perf_counter()
+    timer.start()
+    try:
+        rr = m_.solve()
+    finally:
+        timer.cancel()
+    nums["sigint"] = dict(status=rr.info.status, iters=rr.info.iter,
+                          s=time.perf_counter() - t0)
+    say(f"[9f] SIGINT after 2 s into lp_qp S at eps 1e-14: "
+        f"{rr.info.status} after {rr.info.iter} iterations "
+        f"({nums['sigint']['s']:.2f} s)")
+    require(rr.info.status == "Interrupted" and rr.info.iter >= 250,
+            "[9f] SIGINT did not return Interrupted")
+
+    launches = counts()
+    nums["phase_s"] = time.perf_counter() - t_phase
+    say(f"[9] launches over the Model phase: {launches} (the Model path "
+        f"runs none of the three kernels); phase {nums['phase_s']:.1f} s")
+    require(not any(launches.values()),
+            "[9] the Model path launched a batched kernel")
+    (out_dir / "model_phase.json").write_text(json.dumps(nums, indent=1))
+    return launches, nums
+
 
 def main():
     import torch
@@ -478,6 +716,15 @@ def main():
         print("chip_smoke: no CUDA device; the port's kernels need an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    pool, oracles = start_oracles()
+    try:
+        return run(torch, oracles)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run(torch, oracles):
+    """Phases 1-9 and the result lines (``main`` after its checks)."""
     from osqp_tpu_torch import constants as C
     from osqp_tpu_torch.batch import BatchedSolver
     from osqp_tpu_torch.linalg import precision_scope
@@ -978,6 +1225,7 @@ def main():
                             per_lane=(Pp, qp, Ap, lp, up, Ppd, qpd, Apd, lpd,
                                       upd),
                             ref4=(solver, cold), ref7=f_out, idx=idx)
+    phase9, _ = phase9_model(torch, reset_counts, counts, out_dir, oracles)
 
     ir = iter_rows[iter_variant]
     iter_extra = {f"{v}_{key}": iter_rows[v][k2] for v in ("f32", "lowp")
@@ -1006,7 +1254,9 @@ def main():
         # no single PyTorch call computes K ADMM iterations
         r.update(route="cuda", source="osqp_tpu_torch/csrc/" + r["source"],
                  library_ms=None,
-                 phase8_launches={k: v[r["name"]] for k, v in phase8.items()})
+                 phase8_launches={k: v[r["name"]]
+                                  for k, v in phase8.items()},
+                 phase9_launches=phase9[r["name"]])
     say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {

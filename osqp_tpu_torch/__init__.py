@@ -1,19 +1,63 @@
 """osqp_tpu_torch — the PyTorch + CUDA port of osqp_tpu.
 
 The JAX package ``osqp_tpu`` stays the reference; this package ports it
-slice by slice and never imports jax. Ported so far: the batched engines
-of ``BatchedSolver`` — the shared-structure engine (``kkt_mode="shared"``,
-with its prepared workspace, rollouts and mixed precision) and the per-lane
-engine (``kkt_mode`` "inverse", "chol", "fused"), with polish,
-``time_limit`` and ``profile`` in every mode — and their three kernels,
-hand-written in CUDA for Hopper (``csrc/``), each with a plain PyTorch twin
-that runs on the CPU.
+slice by slice and never imports jax. Ported so far:
+
+* the single-problem engine and its lifecycle API, ``Model`` (alias
+  ``OSQP``): setup, solve with the direct (dense Cholesky) or indirect
+  (block-Jacobi CG) KKT solve, polish, time_limit, updates, warm starts
+  and the solver state's snapshot; ``solve``/``solve_scaled`` are its
+  functional entry points;
+* the batched engines of ``BatchedSolver`` — the shared-structure engine
+  (``kkt_mode="shared"``, with its prepared workspace, rollouts and mixed
+  precision) and the per-lane engine (``kkt_mode`` "inverse", "chol",
+  "fused"), with polish, ``time_limit`` and ``profile`` in every mode —
+  and their three kernels, hand-written in CUDA for Hopper (``csrc/``),
+  each with a plain PyTorch twin that runs on the CPU.
+
+Every entry point runs on the GPU unless the caller passes
+``device="cpu"``. Importing the package builds no kernel.
 """
 
-from . import constants
+from . import constants, problems
 from .batch import BatchedSolver, pad_problems, solve_batch
+from .constants import (
+    OSQP_INFTY,
+    SOLUTION_PRESENT,
+    STATUS_MAP,
+    UPDATABLE_DATA,
+    UPDATABLE_SETTINGS,
+)
+from .core import dyn_from_settings, solve, solve_scaled
+from .interface import Model, __version__, version
 from .settings import Settings
-from .types import SolveOutput
+from .types import DynParams, Info, QPData, Results, ScalingData, SolveOutput
 
-__all__ = ["BatchedSolver", "Settings", "SolveOutput", "constants",
-           "pad_problems", "solve_batch"]
+#: osqp-python-style alias: ``prob = osqp.OSQP(); prob.setup(...)``
+OSQP = Model
+
+__all__ = [
+    "Model",
+    "OSQP",
+    "BatchedSolver",
+    "pad_problems",
+    "solve_batch",
+    "problems",
+    "Settings",
+    "Info",
+    "Results",
+    "QPData",
+    "ScalingData",
+    "DynParams",
+    "SolveOutput",
+    "solve",
+    "solve_scaled",
+    "dyn_from_settings",
+    "version",
+    "constants",
+    "OSQP_INFTY",
+    "STATUS_MAP",
+    "SOLUTION_PRESENT",
+    "UPDATABLE_DATA",
+    "UPDATABLE_SETTINGS",
+]

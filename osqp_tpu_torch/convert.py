@@ -3,8 +3,8 @@
 Each function takes the JAX package's state as NamedTuples (or a dict) of
 arrays, anything ``numpy.asarray`` reads, and returns the port's
 counterpart as tensors on ``device`` in ``dtype``. With them both packages
-can run from one prepared workspace, or a JAX solve can hand its warm
-starts to the port.
+can run from one prepared workspace or one ``Model``'s state, or a JAX
+solve can hand its warm starts to the port.
 """
 
 from __future__ import annotations
@@ -97,3 +97,47 @@ def load_prepared(solver, prep):
     solver._prep = prepared_to_torch(prep, solver.device,
                                      solver.settings.resolve_dtype())
     return solver
+
+
+def factor_state_to_torch(fs, device, dtype):
+    """``osqp_tpu.core.FactorState`` (the direct path's Cholesky factor or
+    the indirect path's block-Jacobi factors) → the port's."""
+    from .core import FactorState
+    return FactorState(*(_tensor(getattr(fs, f), device, dtype)
+                         for f in FactorState._fields))
+
+
+def model_to_torch(jax_model, device):
+    """A set-up ``osqp_tpu.Model`` → a port ``Model`` on ``device`` in the
+    same dtype, with the same settings, problem (its CSC patterns and host
+    vectors), scaled data, scaling, factor state and warm-start iterates,
+    so that both packages solve from one state."""
+    from .interface import Model
+    from .settings import Settings
+    from .sparse import CSCPattern
+
+    dtype = np.dtype(jax_model._dtype)
+    model = Model(device=device)
+    settings = jax_model.settings.asdict()
+    settings["dtype"] = dtype
+    model.settings = Settings(**settings)
+    model._linsys = jax_model._linsys
+    model.n, model.m = jax_model.n, jax_model.m
+    model._dtype = dtype
+    model._tdtype = torch_dtype(dtype)
+    model._q_np = np.array(jax_model._q_np)
+    model._l_np = np.array(jax_model._l_np)
+    model._u_np = np.array(jax_model._u_np)
+    model._P_pat, model._A_pat = (
+        CSCPattern(p.shape, p.indptr, p.rowind, p.vals)
+        for p in (jax_model._P_pat, jax_model._A_pat))
+    model._sdata = qpdata_to_torch(jax_model._sdata, device, dtype)
+    model._scal = scaling_data_to_torch(jax_model._scal, device, dtype)
+    model._fs = factor_state_to_torch(jax_model._fs, device, dtype)
+    model._xbar, model._ybar, model._zbar = (
+        _tensor(v, device, dtype)
+        for v in (jax_model._xbar, jax_model._ybar, jax_model._zbar))
+    model._update_time = 0.0
+    model._setup_time = 0.0
+    model._is_setup = True
+    return model

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from . import constants as C
-from .core import inf_norm
+from .linalg import inf_norm
 from .linalg import chol_factor, with_precision
 from .ops import shared_iter
 from .ops.solve_kernel import admm_solve_shared, pick_group

@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
-"""The port's column of the conformance sweep (``scripts/conformance.py``).
+"""The port's columns of the conformance sweep (``scripts/conformance.py``).
 
-Runs ``BatchedSolver`` of the port (one lane, ``polish=True``) on the
-sweep's cells and holds each status to the ``batched`` engine's row of the
-float64 artifact ``conformance.json``::
+Runs the port on the sweep's cells and holds each status to the float64
+artifact ``conformance.json``::
 
     python3 -m osqp_tpu_torch.tools.conformance [--device cpu|cuda]
-        [--kkt-modes inverse,shared,fused] [--sizes S]
+        [--kkt-modes inverse,shared,fused] [--columns torch-direct,torch-cg]
+        [--sizes S]
 
-Cells, from the port's copy of the problem families: ``solved`` (each
-family at each size of ``SIZE_GRID``), and at size S ``primal_inf``,
-``dual_inf`` and ``non_convex``, built by copies of the script's
-constructors (its :285-313). Settings are the script's float64 column's:
-eps 1e-6 (``lp_qp`` 1e-3), max_iter 100000, polish on. A cell passes when
-its status equals the artifact's; a Solved cell must also have polished
-(``status_polish`` 1) and pass a float64 numpy residual check at its eps;
-an infeasible cell's certificate must pass the script's validity check
-(its :315-343). The script itself is not imported: it configures jax on
-import, and the port runs without jax. Prints one line per cell and the
-seconds each took; exits non-zero if a cell fails.
+Columns: ``BatchedSolver`` of the port (one lane) in each of
+``--kkt-modes``, held to the artifact's ``batched`` rows; and ``Model`` of
+the port with the direct or the CG KKT solve (``--columns`` torch-direct,
+torch-cg), held to its ``jax-direct`` and ``jax-cg`` rows. Cells, from the
+port's copy of the problem families: ``solved`` (each family at each size
+of ``SIZE_GRID``), and at size S ``primal_inf``, ``dual_inf`` and
+``non_convex``, built by copies of the script's constructors (its
+:285-313), and for the Model columns at size S the ``update`` cells
+(solve, ``update(q, l, u)``, a re-solve warm-started from the previous
+solution; the script's :368-377). Settings are the script's
+float64 columns': eps 1e-6 (``lp_qp`` 1e-3), max_iter 100000, polish on.
+A cell passes when its status equals the artifact's (a non-convex Model
+cell fails at setup, "setup_error"); a Solved cell must also have
+polished (``status_polish`` 1) and pass a float64 numpy residual check at
+its eps; an infeasible cell's certificate must pass the script's validity
+check (its :315-343); an update cell must be Solved with the objective of
+the interior-point oracle on the updated data (rtol 1e-5).
+:func:`oracle_gates` holds a Solved cell's x and objective to the
+oracle as the script does. The script itself is not imported: it
+configures jax on import, and the port runs without jax. Prints one line
+per cell and the seconds each took; exits non-zero if a cell fails.
 """
 
 from __future__ import annotations
@@ -33,14 +43,21 @@ import numpy as np
 
 from .. import constants as C
 from ..batch import BatchedSolver
+from ..interface import Model
 from ..problems import FAMILIES, SIZE_GRID
 from ..settings import Settings
+from ..utils.ipm import solve_qp_ipm
 
 EPS = 1e-6
 #: pure LPs run at the reference's default eps with polish, as the sweep
 FAMILY_EPS = {"lp_qp": 1e-3}
 MAX_ITER = 100000
 KINDS = ("solved", "primal_inf", "dual_inf", "non_convex")
+#: the Model columns: their linsys_solver and the artifact's engine
+MODEL_COLUMNS = {"torch-direct": ("direct", "jax-direct"),
+                 "torch-cg": ("cg", "jax-cg")}
+#: the sweep's float64 gates against the interior-point oracle
+OBJ_RTOL, X_ATOL = 1e-5, 5e-4
 ARTIFACT = Path(__file__).resolve().parents[2] / "conformance.json"
 
 
@@ -120,11 +137,12 @@ def cells(sizes=("S",)):
     return out
 
 
-def artifact_statuses(path=ARTIFACT):
-    """{(kind, family, size): status} of the artifact's ``batched`` rows."""
+def artifact_statuses(path=ARTIFACT, engine="batched"):
+    """{(kind, family, size): status} of the artifact's rows of
+    ``engine``."""
     rows = json.loads(Path(path).read_text())["rows"]
     return {(r["kind"], r["family"], r["size"]): r["status"]
-            for r in rows if r["engine"] == "batched"}
+            for r in rows if r["engine"] == engine}
 
 
 def solve_cell(P, q, A, l, u, eps, kkt_mode, device):
@@ -149,6 +167,104 @@ def residual_ok(P, q, A, l, u, x, y, z, eps):
     return bool(ok and np.all(z >= l - 1e-9) and np.all(z <= u + 1e-9))
 
 
+def update_data(q, l, u):
+    """The update cell's new (q, l, u): the script's run_update_cell draw
+    (equality rows keep l == u, both moved by the same shift)."""
+    rng = np.random.RandomState(11)
+    q2 = q + 0.1 * rng.randn(len(q))
+    shift = 0.05 * rng.randn(len(l))
+    l2 = np.where(np.isfinite(l), l + shift, l)
+    u2 = np.where(np.isfinite(u), u + shift, u)
+    return q2, l2, u2
+
+
+def cell_oracle(family, size):
+    """(status, objective, x) of the interior-point oracle on a solved
+    cell; a plain function of its names, so a process pool can run it."""
+    o = solve_qp_ipm(*cell("solved", family, size))
+    return o.status, o.obj, o.x
+
+
+def oracle_gates(P, q, A, l, u, x, family, oracle=None):
+    """(obj_err, x_err, ok) of a solution against the interior-point
+    oracle (``oracle``: a :func:`cell_oracle` result, else solved here):
+    objective rtol 1e-5, x atol 5e-4 (x waived for ``degenerate_qp``,
+    whose x* is not unique); ok is False when the oracle does not
+    converge."""
+    if oracle is None:
+        o = solve_qp_ipm(P, q, A, l, u)
+        oracle = o.status, o.obj, o.x
+    status, o_obj, o_x = oracle
+    if status != "optimal":
+        return float("nan"), float("nan"), False
+    obj = float(0.5 * x @ P @ x + q @ x)
+    obj_err = abs(obj - o_obj) / (1 + abs(o_obj))
+    x_err = float(np.max(np.abs(x - o_x)))
+    return obj_err, x_err, bool(obj_err < OBJ_RTOL and (
+        x_err < X_ATOL or family == "degenerate_qp"))
+
+
+def _judge(row, kind, data, eps, x, y, z, prim_cert, dual_cert):
+    """The gates beyond the status: a Solved cell polished and within eps
+    in float64, an infeasible cell's certificate valid. Returns ok."""
+    P, q, A, l, u = data
+    ok = row["status"] == row["expected"]
+    if kind == "solved":
+        row["residual_ok"] = residual_ok(P, q, A, l, u, x, y, z, eps)
+        row["x"] = x
+        return ok and row["status_polish"] == 1 and row["residual_ok"]
+    if kind == "primal_inf":
+        row["cert_ok"] = bool(validate_farkas(A, l, u, prim_cert))
+        return ok and row["cert_ok"]
+    if kind == "dual_inf":
+        row["cert_ok"] = bool(validate_ray(P, q, A, l, u, dual_cert))
+        return ok and row["cert_ok"]
+    return ok
+
+
+def check_model_cell(kind, family, size, column, device, expected):
+    """Solve one cell through the port's ``Model`` in float64 (``column`` a
+    key of ``MODEL_COLUMNS``) and judge it. The residual check takes
+    z = clip(Ax, l, u), since ``Results`` carries no z; an update cell's
+    objective is held to the oracle's on the updated data (a cell whose
+    oracle does not converge passes on its status, as the script skips
+    it). Returns a row dict with ``ok``."""
+    P, q, A, l, u = cell("solved" if kind == "update" else kind, family,
+                         size)
+    eps = FAMILY_EPS.get(family, EPS)
+    kw = dict(verbose=False, eps_abs=eps, eps_rel=eps, max_iter=MAX_ITER,
+              polish=True, linsys_solver=MODEL_COLUMNS[column][0],
+              dtype=np.float64)
+    row = dict(kind=kind, family=family, size=size, column=column,
+               expected=expected, iters=0)
+    t0 = time.perf_counter()
+    model = Model(device=device)
+    try:
+        model.setup(P=P, q=q, A=A, l=l, u=u, **kw)
+    except ValueError as e:
+        # the direct paths fail at setup on a non-convex P + sigma I
+        msg = str(e).lower()
+        row.update(status="setup_error", seconds=time.perf_counter() - t0,
+                   ok=expected == "setup_error" and (
+                       "convex" in msg or "positive" in msg))
+        return row
+    r = model.solve()
+    if kind == "update":
+        q, l, u = update_data(q, l, u)
+        model.update(q=q, l=l, u=u)
+        r = model.solve()   # warm-started from the previous solution
+    row.update(status=r.info.status, iters=r.info.iter,
+               seconds=time.perf_counter() - t0,
+               status_polish=r.info.status_polish)
+    ok = _judge(row, kind, (P, q, A, l, u), eps, r.x, r.y,
+                np.clip(A @ r.x, l, u), r.prim_inf_cert, r.dual_inf_cert)
+    if kind == "update":
+        row["obj_err"], _, _ = oracle_gates(P, q, A, l, u, r.x, family)
+        ok = ok and not row["obj_err"] >= OBJ_RTOL
+    row["ok"] = bool(ok)
+    return row
+
+
 def check_cell(kind, family, size, kkt_mode, device, expected):
     """Solve one cell and judge it. Returns a row dict with ``ok``."""
     P, q, A, l, u = cell(kind, family, size)
@@ -160,25 +276,34 @@ def check_cell(kind, family, size, kkt_mode, device, expected):
     status = C.STATUS_MAP.get(sv, f"status:{sv}")
     row = dict(kind=kind, family=family, size=size, kkt_mode=kkt_mode,
                status=status, expected=expected, iters=int(out.iter[0]),
-               seconds=seconds)
-    ok = status == expected
-    if kind == "solved":
-        row["status_polish"] = int(out.status_polish[0])
-        x, y, z = (v[0].double().cpu().numpy() for v in (out.x, out.y,
-                                                         out.z))
-        row["residual_ok"] = residual_ok(P, q, A, l, u, x, y, z, eps)
-        ok = ok and row["status_polish"] == 1 and row["residual_ok"]
-        row["x"] = x
-    elif kind == "primal_inf":
-        row["cert_ok"] = bool(validate_farkas(
-            A, l, u, out.prim_cert[0].cpu().numpy()))
-        ok = ok and row["cert_ok"]
-    elif kind == "dual_inf":
-        row["cert_ok"] = bool(validate_ray(
-            P, q, A, l, u, out.dual_cert[0].cpu().numpy()))
-        ok = ok and row["cert_ok"]
-    row["ok"] = bool(ok)
+               seconds=seconds, status_polish=int(out.status_polish[0]))
+    x, y, z, pc, dc = (v[0].double().cpu().numpy() for v in (
+        out.x, out.y, out.z, out.prim_cert, out.dual_cert))
+    row["ok"] = bool(_judge(row, kind, (P, q, A, l, u), eps, x, y, z, pc,
+                            dc))
     return row
+
+
+def run_model_columns(columns, device, sizes=("S",), artifact=ARTIFACT,
+                      say=print):
+    """Every cell of every Model column (with S, the update cells too);
+    returns the rows."""
+    rows = []
+    for column in columns:
+        expected = artifact_statuses(artifact, MODEL_COLUMNS[column][1])
+        todo = cells(sizes)
+        if "S" in sizes:
+            todo += [("update", f, "S") for f in sorted(FAMILIES)]
+        for kind, family, size in todo:
+            row = check_model_cell(kind, family, size, column, device,
+                                   expected[(kind, family, size)])
+            rows.append(row)
+            say(f"{column:12s} {kind:10s} {family:18s} {size} "
+                f"{row['status']:18s} (artifact {row['expected']}) it="
+                f"{row['iters']} polish={row.get('status_polish', '-')} "
+                f"cert={row.get('cert_ok', '-')} "
+                f"{row['seconds']:.2f}s {'OK' if row['ok'] else 'FAIL'}")
+    return rows
 
 
 def run_column(kkt_modes, device, sizes=("S",), artifact=ARTIFACT,
@@ -203,11 +328,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--kkt-modes", default="inverse")
+    ap.add_argument("--columns", default="",
+                    help="Model columns: torch-direct,torch-cg")
     ap.add_argument("--sizes", default="S")
     a = ap.parse_args(argv)
     t0 = time.perf_counter()
-    rows = run_column(a.kkt_modes.split(","), a.device,
-                      tuple(a.sizes.split(",")))
+    sizes = tuple(a.sizes.split(","))
+    rows = run_column([k for k in a.kkt_modes.split(",") if k], a.device,
+                      sizes)
+    rows += run_model_columns([c for c in a.columns.split(",") if c],
+                              a.device, sizes)
     n_ok = sum(r["ok"] for r in rows)
     print(f"{n_ok}/{len(rows)} cells pass on {a.device} in "
           f"{time.perf_counter() - t0:.1f} s")

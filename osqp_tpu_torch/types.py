@@ -70,8 +70,11 @@ class DynParams(NamedTuple):
 
 
 class SolveOutput(NamedTuple):
-    """Result of a batched solve (scaled iterates + diagnostics); every
-    per-lane field has a leading batch axis."""
+    """Result of a solve (unscaled and scaled iterates, diagnostics). From
+    a batched engine every per-lane field has a leading batch axis; from
+    the single-problem engine (``core.solve_scaled``) the fields have no
+    batch axis and ``status``, ``iter``, ``rho_updates`` and the back-off
+    state are Python ints."""
     x: Any            # (B, n) unscaled primal solution
     y: Any            # (B, m) unscaled dual solution
     z: Any            # (B, m) unscaled slack Ax ≈ z

@@ -9,7 +9,11 @@ column's row in ``conformance.json``; a Solved cell also polishes, passes a
 float64 residual check at its eps and meets the sweep's CPU gates against
 the interior-point oracle (objective rtol 1e-5, x atol 5e-4, x waived for
 ``degenerate_qp``); an infeasible cell's certificate passes the sweep's
-validity check. The S cells run here; the M and L cells and the
+validity check. The port's ``Model`` columns, torch-direct and torch-cg,
+are held the same way to the artifact's ``jax-direct`` and ``jax-cg``
+rows (a non-convex cell fails at setup); their update cells re-solve
+warm after ``update(q, l, u)`` and meet the oracle's objective on the
+updated data. The S cells run here; the M and L cells and the
 update-and-re-solve cells are marked ``slow``.
 """
 
@@ -22,6 +26,12 @@ from osqp_tpu_torch import problems as TPR
 from osqp_tpu_torch.batch import BatchedSolver
 from osqp_tpu_torch.settings import Settings
 from osqp_tpu_torch.tools import conformance as CF
+from test_torch_model_basic import one_torch_thread  # noqa: F401
+
+# one intra-op thread per test: beside the suite's other workers the
+# one-lane solves' small torch calls otherwise wait for cores (the 48
+# batched S cells took 93 s in a six-worker run against 12 s alone)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 OBJ_RTOL, X_ATOL = 1e-5, 5e-4
 FAMILIES = sorted(JPR.FAMILIES)
@@ -107,3 +117,44 @@ def test_column_covers_the_artifacts_batched_s_cells():
     rows = CF.artifact_statuses()
     s_cells = {k for k in rows if k[2] == "S" and k[0] in CF.KINDS}
     assert set(CF.cells(("S",))) == s_cells and len(s_cells) == 48
+
+
+def _check_model(kind, family, size, column):
+    engine = CF.MODEL_COLUMNS[column][1]
+    expected = CF.artifact_statuses(engine=engine)[(kind, family, size)]
+    row = CF.check_model_cell(kind, family, size, column, "cpu", expected)
+    assert row["status"] == expected
+    assert row["ok"], row
+    if kind == "solved":
+        _solved_gates(row, family, size)
+
+
+@pytest.mark.parametrize("column", sorted(CF.MODEL_COLUMNS))
+@pytest.mark.parametrize("kind", CF.KINDS)
+@pytest.mark.parametrize("family", FAMILIES)
+def test_model_conformance_s_cell(family, kind, column):
+    _check_model(kind, family, "S", column)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("column", sorted(CF.MODEL_COLUMNS))
+@pytest.mark.parametrize("size", ["M", "L"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_model_conformance_solved_cell_large(family, size, column):
+    _check_model("solved", family, size, column)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("column", sorted(CF.MODEL_COLUMNS))
+@pytest.mark.parametrize("family", FAMILIES)
+def test_model_conformance_update_cell(family, column):
+    _check_model("update", family, "S", column)
+
+
+def test_model_columns_cover_the_artifacts_s_cells():
+    for column, (_, engine) in CF.MODEL_COLUMNS.items():
+        rows = CF.artifact_statuses(engine=engine)
+        s_cells = {k for k in rows if k[2] == "S" and k[0] in CF.KINDS}
+        assert set(CF.cells(("S",))) == s_cells and len(s_cells) == 48
+        assert {k for k in rows if k[0] == "update"} == {
+            ("update", f, "S") for f in FAMILIES}

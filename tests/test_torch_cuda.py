@@ -16,7 +16,10 @@ cuBLAS); float32 and tf32: statuses identical, x within rtol 1e-3, atol
 tolerance. Solves in float64: statuses and iteration counts identical;
 polished solves against the same solve through the plain twins also
 ``status_polish`` identical and x, y within atol 1e-9, and time-limited
-solves the unlimited solve's statuses.
+solves the unlimited solve's statuses. The single-problem ``Model`` on the
+card against ``device="cpu"`` in float64: statuses, iterations, rho
+updates and ``status_polish`` identical, x, y and certificates within
+1e-6.
 """
 
 from unittest import mock
@@ -620,3 +623,76 @@ def test_time_limit_on_card_matches_unlimited_statuses(dev, mode):
     np.testing.assert_array_equal(got.status.cpu().numpy(),
                                   free.status.cpu().numpy())
     assert 0.0 < timed.last_solve_time < 60.0
+
+
+# ---------------------------------------------------------------------------
+# the single-problem Model on the card against the CPU (float64)
+# ---------------------------------------------------------------------------
+
+def _model_pair(dev, P, q, A, l, u, **kw):
+    """The same setup and solve on the card and on the CPU."""
+    from osqp_tpu_torch.interface import Model
+    kw = dict(verbose=False, dtype=np.float64, **kw)
+    gpu = Model(device=dev).setup(P=P, q=q, A=A, l=l, u=u, **kw)
+    cpu = Model(device="cpu").setup(P=P, q=q, A=A, l=l, u=u, **kw)
+    return gpu, cpu
+
+
+def _assert_model_match(rg, rc):
+    """Statuses, iterations, rho updates and status_polish equal; x, y and
+    certificates within 1e-6."""
+    for f in ("status", "iter", "rho_updates", "status_polish"):
+        assert getattr(rg.info, f) == getattr(rc.info, f), f
+    for f in ("x", "y", "prim_inf_cert", "dual_inf_cert"):
+        np.testing.assert_allclose(getattr(rg, f), getattr(rc, f), rtol=0,
+                                   atol=1e-6, err_msg=f)
+
+
+@pytest.mark.parametrize("linsys", ["direct", "indirect"])
+@pytest.mark.parametrize("family", ["random_qp", "control_qp", "eq_qp"])
+def test_model_on_card_matches_cpu_f64(dev, family, linsys):
+    """Problems of the sweep's S cells, whose iteration counts are stable
+    under last-bit changes (their residuals cross eps far from a check
+    boundary): cold, then update(q) and a warm re-solve."""
+    from osqp_tpu_torch.problems import FAMILIES as TF
+    P, q, A, l, u = TF[family]()
+    gpu, cpu = _model_pair(dev, P, q, A, l, u, eps_abs=1e-6, eps_rel=1e-6,
+                           polish=True, linsys_solver=linsys)
+    assert gpu._sdata.P.is_cuda
+    _assert_model_match(gpu.solve(), cpu.solve())
+    q2 = q + 0.1 * np.random.RandomState(4).randn(len(q))
+    gpu.update(q=q2)
+    cpu.update(q=q2)
+    _assert_model_match(gpu.solve(), cpu.solve())
+
+
+def test_model_on_card_certificates_and_time_limit(dev):
+    """A primal infeasible cell (its certificate) and a time-limited solve
+    on the card against the CPU."""
+    from osqp_tpu_torch.tools import conformance as CF
+    P, q, A, l, u = CF.cell("primal_inf", "random_qp", "S")
+    gpu, cpu = _model_pair(dev, P, q, A, l, u, eps_abs=1e-6, eps_rel=1e-6)
+    rg, rc = gpu.solve(), cpu.solve()
+    assert rg.info.status == "Primal_infeasible"
+    _assert_model_match(rg, rc)
+    P, q, A, l, u = CF.cell("solved", "random_qp", "S")
+    gpu, cpu = _model_pair(dev, P, q, A, l, u, eps_abs=1e-6, eps_rel=1e-6,
+                           time_limit=60.0)
+    rg, rc = gpu.solve(), cpu.solve()
+    assert rg.info.status == "Solved" and 0.0 < rg.info.solve_time < 60.0
+    _assert_model_match(rg, rc)
+
+
+def test_model_tf32_on_card_status_equals_float32(dev):
+    """tensorfloat32 (bf16x3 split products) against float32 on the card:
+    the same status."""
+    from osqp_tpu_torch.interface import Model
+    from osqp_tpu_torch.problems import FAMILIES as TF
+    P, q, A, l, u = TF["random_qp"]()
+    st = []
+    for mp in ("float32", "tensorfloat32"):
+        m = Model(device=dev).setup(P=P, q=q, A=A, l=l, u=u, eps_abs=1e-3,
+                                    eps_rel=1e-3, verbose=False,
+                                    dtype=np.float32, matmul_precision=mp)
+        st.append(m.solve().info.status)
+    assert st[0] == st[1] == "Solved"
