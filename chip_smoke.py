@@ -62,7 +62,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and the 12 update cells (solve, update(q, l, u), warm re-solve) of the
    float64 conformance sweep through its torch-direct and torch-cg
    columns, each status equal to conformance.json's jax-direct or jax-cg
-   row; (b) the 12 L-size solved cells through torch-direct in float64,
+   row, in five worker processes while (b) runs; (b) the 12 L-size solved
+   cells through torch-direct in float64,
    polished, with a float64 numpy residual check and the interior-point
    oracle's objective and x gates (the oracle runs in two worker
    processes started before the build); (c) the MPC loop on control_qp L
@@ -75,18 +76,45 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    float32 on two L cells, statuses equal; (f) a SIGINT fired by a timer
    into an unending LP solve, which returns Interrupted; it checks that
    the phase launched none of the three kernels;
-10. prints one JSON line of the three kernels (launch counts of their own
-   paths and of phases 8 and 9, agreement with the twins, times, and the
-   least time the card could take for the same work), the nvidia-smi
+10. drives the sparse engine and the modeling layer, which run no hand
+   kernel either: (a) BASELINE.json's configuration #4 at full size,
+   nothing cut (``osqp_tpu_torch/tools/sparse_large.py``: n=100,000,
+   m=150,000, 450,000 random entries of A plus its identity block, P
+   diagonal, float32, eps 1e-3) through ``SparseModel(device="cuda")`` in
+   both sparse formats (CSR and ELL): setup, a cold solve,
+   ``update(q=0.8 q)`` and a warm solve, each Solved with a float64 host
+   check of the bound violation and the dual residual; times, ADMM and CG
+   iterations, ms per iteration, peak device memory; warm solves of the
+   two formats in turns (``sparse_format="auto"``'s decision) and one of
+   each traced for the idle share; (b) the S and update cells of the
+   torch-sparse and torch-sparse-mf columns in float64, each status equal
+   to conformance.json's ``sparse``/``sparse-mf`` row (in five worker
+   processes), and meanwhile the 12 L solved cells of torch-sparse with
+   the oracle's gates; (c) the modeling
+   layer at full width: control_qp L (n=960, m=1600) built through
+   ``Problem(device="cuda")`` in float32 at eps 1e-3, one
+   ``add_constraint`` per row, solved cold and through 20 MPC steps of
+   value-only changes (``set_constraint_bounds`` on the initial-state
+   rows, ``set_objective_coefficient`` for the moving reference), held to
+   the port's ``Model`` fed the same updates (statuses and iterations
+   equal, x within 1e-5 relative) with no re-setup, then a new row that
+   sets up anew; (c) and (a) run first, in a process of their own (after
+   phase 9's profiler trace every launch of this process is slower);
+   (d) it checks that the phase launched none of the three kernels;
+11. prints one JSON line of the three kernels (launch counts of their own
+   paths and of phases 8, 9 and 10, agreement with the twins, times, and
+   the least time the card could take for the same work), the nvidia-smi
    line, and last the device line ``{"ok": true, "device": {...}}``.
 
-Each path (4, 6, 7, each of phase 8's and phase 9) runs with every launch
-counter set to 0 just before it and read just after. Any failed check
-raises, so the exit code is non-zero and no device line is printed.
-Without a GPU, or outside a checkout, it exits non-zero too. The
-compiler's register/shared-memory report, phase 8's and phase 9's
-per-cell conformance lines and phase 9's numbers (model_phase.json) go to
-the output directory beside the run (``out_dir`` in ``run``).
+Each path (4, 6, 7, each of phase 8's, phase 9 and phase 10) runs with
+every launch counter set to 0 just before it and read just after (a
+worker process reports the launches it made, added to its phase's). Any
+failed check raises, so the exit code is non-zero and no device line is
+printed. Without a GPU, or outside a checkout, it exits non-zero too. The
+compiler's register/shared-memory report, phase 8's, 9's and 10's
+per-cell conformance lines and phase 9's and 10's numbers
+(model_phase.json, sparse_phase.json) go to the output directory beside
+the run (``out_dir`` in ``run``).
 """
 
 import functools
@@ -116,6 +144,8 @@ PEAK_F32, PEAK_BF16, MEM_RATE = 67e12, 989e12, 3.35e12
 #: at the clock that the float32 peak implies (1.98 GHz).
 NUM_SMS, SMEM_RATE, FMA_RATE = 132, 128, 128
 SM_CLOCK = PEAK_F32 / (2 * NUM_SMS * FMA_RATE)
+#: Worker processes for the single-problem conformance cells (phases 9, 10).
+CELL_WORKERS = 5
 
 
 def make_batch(B, n, m, seed=0):
@@ -519,6 +549,110 @@ def start_oracles():
     return pool, futures
 
 
+def kernel_wrappers():
+    """The three kernels' wrappers by name (each keeps its launch count)."""
+    from osqp_tpu_torch.ops import fused_iter as FI
+    from osqp_tpu_torch.ops import shared_iter as SI
+    from osqp_tpu_torch.ops import solve_kernel as SK
+    return {"admm_solve_shared": SK.admm_solve_shared,
+            "admm_iterate_shared": SI.admm_iterate_shared,
+            "admm_iterate": FI.admm_iterate}
+
+
+def counted_cells(todo, column, device, expected):
+    """``conformance.check_cells`` in a worker process, with the launches of
+    the three kernels over it (the main process's counts do not see a
+    worker's launches)."""
+    from osqp_tpu_torch.tools import conformance as CF
+    kernels = kernel_wrappers()
+    before = {k: fn.launches for k, fn in kernels.items()}
+    rows = CF.check_cells(todo, column, device, expected)
+    return rows, {k: fn.launches - before[k] for k, fn in kernels.items()}
+
+
+class CellPool:
+    """The S and update cells of single-problem conformance columns on the
+    card, in CELL_WORKERS spawned processes beside the main process's work
+    (the one-problem solves are host-bound); ``join`` returns the rows and
+    the kernels' launches summed over the workers."""
+
+    def __init__(self, columns):
+        from osqp_tpu_torch.tools import conformance as CF
+        self.t0 = time.perf_counter()
+        self.pool = CF.worker_pool(CELL_WORKERS)
+        self.futures = [self.pool.submit(counted_cells, *t)
+                        for t in CF.column_tasks(columns, "cuda")]
+
+    def join(self):
+        try:
+            out = [f.result() for f in self.futures]
+        finally:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+        self.seconds = time.perf_counter() - self.t0
+        launches = {}
+        for _, c in out:
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+        return [r for rows, _ in out for r in rows], launches
+
+
+def report_columns(tag, rows, columns, engines, log):
+    """Print each column's pass count and every failure; require all
+    pass."""
+    from osqp_tpu_torch.tools import conformance as CF
+    log.extend(CF.cell_line(r) for r in rows)
+    for col in columns:
+        mine = [r for r in rows if r["column"] == col]
+        say(f"[{tag}] {col} S and update cells, float64: "
+            f"{sum(r['ok'] for r in mine)}/{len(mine)} pass (statuses equal "
+            f"to conformance.json's {engines[col][1]} column); "
+            f"{sum(r['seconds'] for r in mine):.1f} s of cell time")
+    for r in rows:
+        if not r["ok"]:
+            say(f"[{tag}] FAIL {r['column']} {r['kind']} {r['family']}: "
+                f"{r['status']} against {r['expected']}")
+    require(all(r["ok"] for r in rows), f"[{tag}] an S or update cell "
+            f"failed")
+
+
+def oracle_l_cells(tag, column, engine, oracles, log):
+    """The 12 L solved cells of a single-problem column in float64, polished,
+    with a float64 residual check and the interior-point oracle's objective
+    and x gates; require all pass. Returns the seconds they took."""
+    from osqp_tpu_torch.tools import conformance as CF
+    expected = CF.artifact_statuses(engine=engine)
+    t0 = time.perf_counter()
+    l_rows = []
+    for fam in sorted(CF.FAMILIES):
+        row = CF.check_model_cell("solved", fam, "L", column, "cuda",
+                                  expected[("solved", fam, "L")])
+        P, q, A, l, u = CF.cell("solved", fam, "L")
+        obj_err, x_err, gates = CF.oracle_gates(
+            P, q, A, l, u, row["x"], fam, oracle=oracles[fam].result())
+        row.update(obj_err=obj_err, x_err=x_err, ok=row["ok"] and gates)
+        l_rows.append(row)
+        log.append(f"{column} solved {fam:18s} L n={P.shape[0]} "
+                   f"m={A.shape[0]} {row['status']} it={row['iters']} "
+                   f"polish={row['status_polish']} obj_err={obj_err:.1e} "
+                   f"x_err={x_err:.1e} {row['seconds']:.2f}s "
+                   f"{'OK' if row['ok'] else 'FAIL'}")
+    seconds = time.perf_counter() - t0
+    say(f"[{tag}] {column} L solved cells, float64: "
+        f"{sum(r['ok'] for r in l_rows)}/12 pass (statuses, polish, "
+        f"float64 residuals, oracle objective and x) in {seconds:.1f} s")
+    for r in l_rows:
+        if not r["ok"]:
+            say(f"[{tag}] FAIL {r['family']}: {r['status']}, polish "
+                f"{r['status_polish']}, residual {r['residual_ok']}, "
+                f"obj_err {r['obj_err']:.2e}, x_err {r['x_err']:.2e}")
+    require(all(r["ok"] for r in l_rows), f"[{tag}] an L cell failed")
+    return seconds
+
+
+def merge_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def phase9_model(torch, reset_counts, counts, out_dir, oracles):
     """Phase 9: the single-problem ``Model`` through its entry points.
     Returns (launches of the three kernels over the phase, the numbers it
@@ -532,53 +666,19 @@ def phase9_model(torch, reset_counts, counts, out_dir, oracles):
     reset_counts()
     t_phase = time.perf_counter()
 
-    # -- (a) the S and update cells of both Model columns, float64 --
-    t0 = time.perf_counter()
-    rows = CF.run_model_columns(("torch-direct", "torch-cg"), "cuda",
-                                say=log.append)
-    nums["s_cells_s"] = time.perf_counter() - t0
-    for col in ("torch-direct", "torch-cg"):
-        mine = [r for r in rows if r["column"] == col]
-        say(f"[9a] {col} S and update cells, float64: "
-            f"{sum(r['ok'] for r in mine)}/{len(mine)} pass (statuses equal "
-            f"to conformance.json's {CF.MODEL_COLUMNS[col][1]} column) in "
-            f"{sum(r['seconds'] for r in mine):.1f} s")
-    for r in rows:
-        if not r["ok"]:
-            say(f"[9a] FAIL {r['column']} {r['kind']} {r['family']}: "
-                f"{r['status']} against {r['expected']}")
-    require(all(r["ok"] for r in rows), "[9a] a Model S cell failed")
-
-    # -- (b) the 12 L solved cells through torch-direct, float64 --
-    expected = CF.artifact_statuses(engine="jax-direct")
-    t0 = time.perf_counter()
-    l_rows = []
-    for fam in sorted(CF.FAMILIES):
-        row = CF.check_model_cell("solved", fam, "L", "torch-direct", "cuda",
-                                  expected[("solved", fam, "L")])
-        P, q, A, l, u = CF.cell("solved", fam, "L")
-        obj_err, x_err, gates = CF.oracle_gates(
-            P, q, A, l, u, row["x"], fam, oracle=oracles[fam].result())
-        row.update(obj_err=obj_err, x_err=x_err, ok=row["ok"] and gates)
-        l_rows.append(row)
-        log.append(f"torch-direct solved {fam:18s} L n={P.shape[0]} "
-                   f"m={A.shape[0]} {row['status']} it={row['iters']} "
-                   f"polish={row['status_polish']} obj_err={obj_err:.1e} "
-                   f"x_err={x_err:.1e} {row['seconds']:.2f}s "
-                   f"{'OK' if row['ok'] else 'FAIL'}")
-    nums["l_cells_s"] = time.perf_counter() - t0
+    # -- (a) the S and update cells of both Model columns, float64, in
+    # worker processes, while (b) the 12 L solved cells of torch-direct
+    # run here --
+    cols = ("torch-direct", "torch-cg")
+    pool = CellPool(cols)
+    nums["l_cells_s"] = oracle_l_cells("9b", "torch-direct", "jax-direct",
+                                       oracles, log)
+    rows, pool_launches = pool.join()
+    nums["s_cells_s"] = pool.seconds
+    report_columns("9a", rows, cols, CF.MODEL_COLUMNS, log)
+    say(f"[9a] the 120 cells in {CELL_WORKERS} worker processes: "
+        f"{pool.seconds:.1f} s (beside 9b)")
     (out_dir / "conformance_model.txt").write_text("\n".join(log) + "\n")
-    say(f"[9b] torch-direct L solved cells, float64: "
-        f"{sum(r['ok'] for r in l_rows)}/12 pass (statuses, polish, "
-        f"float64 residuals, oracle objective and x) in "
-        f"{nums['l_cells_s']:.1f} s; per cell in "
-        f"{out_dir / 'conformance_model.txt'}")
-    for r in l_rows:
-        if not r["ok"]:
-            say(f"[9b] FAIL {r['family']}: {r['status']}, polish "
-                f"{r['status_polish']}, residual {r['residual_ok']}, "
-                f"obj_err {r['obj_err']:.2e}, x_err {r['x_err']:.2e}")
-    require(all(r["ok"] for r in l_rows), "[9b] an L cell failed")
 
     # -- (c) the MPC loop: control_qp L, float32, eps 1e-3 --
     loop = MPCLoop(**L_SIZE)
@@ -700,13 +800,166 @@ def phase9_model(torch, reset_counts, counts, out_dir, oracles):
     require(rr.info.status == "Interrupted" and rr.info.iter >= 250,
             "[9f] SIGINT did not return Interrupted")
 
-    launches = counts()
+    launches = merge_counts(counts(), pool_launches)
     nums["phase_s"] = time.perf_counter() - t_phase
     say(f"[9] launches over the Model phase: {launches} (the Model path "
         f"runs none of the three kernels); phase {nums['phase_s']:.1f} s")
     require(not any(launches.values()),
             "[9] the Model path launched a batched kernel")
     (out_dir / "model_phase.json").write_text(json.dumps(nums, indent=1))
+    return launches, nums
+
+
+def modeling_loop(torch, say=say):
+    """Phase 10(c): control_qp L built and driven through the modeling
+    layer on the card, against the port's ``Model`` fed the same updates.
+    Returns its numbers."""
+    import scipy.sparse as sp
+    from osqp_tpu_torch.interface import Model
+    from osqp_tpu_torch.modeling import Problem
+    from osqp_tpu_torch.tools.mpc_loop import L_SIZE, MPCLoop
+
+    loop = MPCLoop(**L_SIZE)
+    P, q, A, l, u = loop.problem()
+    n, m, nx = P.shape[0], A.shape[0], loop.nx
+    kw = dict(eps_abs=1e-3, eps_rel=1e-3, verbose=False, dtype=np.float32)
+    nums = {}
+    t0 = time.perf_counter()
+    pr = Problem(device="cuda", **kw)
+    xs = pr.add_variables(n)
+    Pu = sp.coo_matrix(sp.triu(P))
+    pr.set_objective(quadratic={(int(i), int(j)): float(v) for i, j, v
+                                in zip(Pu.row, Pu.col, Pu.data)},
+                     affine=q)
+    Ac = sp.csr_matrix(A)
+    cons = [pr.add_constraint(
+        {int(j): float(v) for j, v in zip(
+            Ac.indices[Ac.indptr[i]:Ac.indptr[i + 1]],
+            Ac.data[Ac.indptr[i]:Ac.indptr[i + 1]])}, lb=l[i], ub=u[i])
+        for i in range(m)]
+    nums["assembly_ms"] = (time.perf_counter() - t0) * 1e3
+    model = Model(device="cuda").setup(P=P, q=q, A=A, l=l, u=u, **kw)
+    nums["first_optimize_ms"], r = wall_ms(torch, pr.optimize, 1)
+    inner = pr.raw_solver()
+    nums["setup_ms"] = r.info.setup_time * 1e3
+    rm = model.solve()
+    steps, opt_ms, mod_ms = [], [], []
+    q_prev = q
+    for k in range(21):
+        require(r.info.status == rm.info.status == "Solved"
+                and r.info.iter == rm.info.iter,
+                f"[10c] step {k}: Problem {r.info.status} "
+                f"{r.info.iter}, Model {rm.info.status} {rm.info.iter}")
+        rel = float(np.max(np.abs(r.x - rm.x))
+                    / max(1.0, float(np.max(np.abs(rm.x)))))
+        require(rel <= 1e-5, f"[10c] step {k}: x differs by {rel:.2e}")
+        steps.append((r.info.iter, rel))
+        if k == 20:
+            break
+        qk, lk, uk = loop.step(r.x)
+        t0 = time.perf_counter()
+        for i in range(nx):
+            pr.set_constraint_bounds(cons[i], lk[i], uk[i])
+        for j in np.nonzero(qk != q_prev)[0]:
+            pr.set_objective_coefficient(xs[j], float(qk[j]))
+        mod_ms.append((time.perf_counter() - t0) * 1e3)
+        q_prev = qk
+        t, r = wall_ms(torch, pr.optimize, 1)
+        opt_ms.append(t)
+        require(pr.raw_solver() is inner, f"[10c] step {k}: set up anew")
+        model.update(q=qk, l=lk, u=uk)
+        rm = model.solve()
+    nums.update(optimize_ms=opt_ms, modify_ms=mod_ms,
+                iters=[s_[0] for s_ in steps],
+                max_rel_x=max(s_[1] for s_ in steps))
+    pr.add_constraint({0: 1.0, 1: -1.0}, ub=10.0)
+    r = pr.optimize()
+    require(pr.raw_solver() is not inner and r.info.status == "Solved",
+            "[10c] a new row did not set up anew")
+    say(f"[10c] modeling layer, control_qp L (n={n}, m={m}) through "
+        f"Problem(device='cuda'), float32, eps 1e-3: assembly "
+        f"{nums['assembly_ms']:.1f} ms ({m} add_constraint calls), first "
+        f"optimize {nums['first_optimize_ms']:.1f} ms (setup "
+        f"{nums['setup_ms']:.1f} ms); 20 MPC steps of value-only changes "
+        f"(the modifying calls: median {statistics.median(mod_ms):.1f} ms "
+        f"of host Python): optimize median "
+        f"{statistics.median(opt_ms):.2f} ms, highest "
+        f"{max(opt_ms):.2f} ms, iterations {nums['iters']}, equal to the "
+        f"Model's, x within {nums['max_rel_x']:.1e} relative, the same "
+        f"inner Model throughout; a new row set up anew")
+    return nums
+
+
+def timed_sparse_modeling():
+    """Phase 10 (c), then (a), in a worker process of their own. Returns
+    (their numbers, the three kernels' launches over them)."""
+    import torch
+    from osqp_tpu_torch.interface import Model
+    from osqp_tpu_torch.tools import sparse_large as SL
+    kernels = kernel_wrappers()
+    before = {k: fn.launches for k, fn in kernels.items()}
+    # the process's first CUDA call, context and library handles before
+    # the clocks start: one tiny Model solve
+    Model(device="cuda").setup(
+        P=np.eye(2), q=np.ones(2), A=np.eye(2), l=-np.ones(2),
+        u=np.ones(2), verbose=False, dtype=np.float32).solve()
+    nums = {"modeling": modeling_loop(torch),
+            "large": SL.run(torch, device="cuda", say=say)}
+    torch.cuda.synchronize()
+    return nums, {k: fn.launches - before[k] for k, fn in kernels.items()}
+
+
+def phase10_sparse(torch, reset_counts, counts, out_dir, oracles):
+    """Phase 10: the sparse engine at BASELINE #4's full size and on the
+    conformance cells, and the modeling layer. Returns (launches of the
+    three kernels over the phase, the numbers it measured)."""
+    from osqp_tpu_torch import sparse_core as TSC
+    from osqp_tpu_torch.tools import conformance as CF
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    nums = {}
+    # -- (a) BASELINE #4 in both formats, and (c) the modeling layer at
+    # full width, in a fresh process: after phase 9's torch.profiler trace
+    # every launch of this process ran slower (the sparse warm solve took
+    # 0.33-0.35 s here against 0.17 s in a process of its own, on an NVIDIA
+    # H100 80GB HBM3 at 700 W) --
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as one:
+        timed, timed_launches = one.submit(timed_sparse_modeling).result()
+    nums.update(timed)
+    say(f"[10a] sparse_format='auto' is {TSC._AUTO_FORMAT!r}; this run's "
+        f"faster format: {nums['large']['auto_pick']!r}")
+
+    # -- (b) the S and update cells of both sparse columns, float64, in
+    # worker processes (lp_qp's through the CG path take minutes), while
+    # the 12 L solved cells of torch-sparse run here --
+    log = []
+    cols = ("torch-sparse", "torch-sparse-mf")
+    pool = CellPool(cols)
+    nums["l_cells_s"] = oracle_l_cells("10b", "torch-sparse", "sparse",
+                                       oracles, log)
+    rows, pool_launches = pool.join()
+    nums["s_cells_s"] = pool.seconds
+    report_columns("10b", rows, cols, CF.SPARSE_COLUMNS, log)
+    for col in cols:
+        nums[f"{col}_s"] = sum(r["seconds"] for r in rows
+                               if r["column"] == col)
+    say(f"[10b] the 120 cells in {CELL_WORKERS} worker processes: "
+        f"{pool.seconds:.1f} s (beside the L cells); per cell in "
+        f"{out_dir / 'conformance_sparse.txt'}")
+    (out_dir / "conformance_sparse.txt").write_text("\n".join(log) + "\n")
+
+    launches = merge_counts(counts(), pool_launches, timed_launches)
+    nums["phase_s"] = time.perf_counter() - t_phase
+    say(f"[10] launches over the sparse and modeling phase: {launches} (no "
+        f"hand kernel on these paths); phase {nums['phase_s']:.1f} s")
+    require(not any(launches.values()),
+            "[10] the sparse or modeling path launched a batched kernel")
+    (out_dir / "sparse_phase.json").write_text(
+        json.dumps(nums, indent=1, default=float))
     return launches, nums
 
 
@@ -724,7 +977,7 @@ def main():
 
 
 def run(torch, oracles):
-    """Phases 1-9 and the result lines (``main`` after its checks)."""
+    """Phases 1-10 and the result lines (``main`` after its checks)."""
     from osqp_tpu_torch import constants as C
     from osqp_tpu_torch.batch import BatchedSolver
     from osqp_tpu_torch.linalg import precision_scope
@@ -734,9 +987,7 @@ def run(torch, oracles):
     from osqp_tpu_torch.ops import solve_kernel as SK
     from osqp_tpu_torch.settings import Settings
 
-    kernels = {"admm_solve_shared": SK.admm_solve_shared,
-               "admm_iterate_shared": SI.admm_iterate_shared,
-               "admm_iterate": FI.admm_iterate}
+    kernels = kernel_wrappers()
 
     def reset_counts():
         for fn in kernels.values():
@@ -1226,6 +1477,7 @@ def run(torch, oracles):
                                       upd),
                             ref4=(solver, cold), ref7=f_out, idx=idx)
     phase9, _ = phase9_model(torch, reset_counts, counts, out_dir, oracles)
+    phase10, _ = phase10_sparse(torch, reset_counts, counts, out_dir, oracles)
 
     ir = iter_rows[iter_variant]
     iter_extra = {f"{v}_{key}": iter_rows[v][k2] for v in ("f32", "lowp")
@@ -1256,7 +1508,8 @@ def run(torch, oracles):
                  library_ms=None,
                  phase8_launches={k: v[r["name"]]
                                   for k, v in phase8.items()},
-                 phase9_launches=phase9[r["name"]])
+                 phase9_launches=phase9[r["name"]],
+                 phase10_launches=phase10[r["name"]])
     say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,12 @@ slice by slice and never imports jax. Ported so far:
   (block-Jacobi CG) KKT solve, polish, time_limit, updates, warm starts
   and the solver state's snapshot; ``solve``/``solve_scaled`` are its
   functional entry points;
+* the modeling layer over it, ``Problem`` (``modeling.py``, with the
+  modification caches of ``modcaches.py``);
+* the sparse engine, ``SparseModel`` (``sparse_core.py``): scipy.sparse
+  input, routed to a dense Cholesky at small sizes or to a
+  Jacobi-preconditioned CG on CSR (``sparse_ops.py``) or ELL
+  (``padded_sparse.py``) operators;
 * the batched engines of ``BatchedSolver`` — the shared-structure engine
   (``kkt_mode="shared"``, with its prepared workspace, rollouts and mixed
   precision) and the per-lane engine (``kkt_mode`` "inverse", "chol",
@@ -30,7 +36,9 @@ from .constants import (
 )
 from .core import dyn_from_settings, solve, solve_scaled
 from .interface import Model, __version__, version
+from .modeling import Problem
 from .settings import Settings
+from .sparse_core import SparseModel
 from .types import DynParams, Info, QPData, Results, ScalingData, SolveOutput
 
 #: osqp-python-style alias: ``prob = osqp.OSQP(); prob.setup(...)``
@@ -39,6 +47,8 @@ OSQP = Model
 __all__ = [
     "Model",
     "OSQP",
+    "Problem",
+    "SparseModel",
     "BatchedSolver",
     "pad_problems",
     "solve_batch",

@@ -141,3 +141,81 @@ def model_to_torch(jax_model, device):
     model._setup_time = 0.0
     model._is_setup = True
     return model
+
+
+def sparse_op_to_torch(op, device, dtype):
+    """``osqp_tpu.sparse_ops.SparseOp`` (BCOO ``M``, ``MT``, ``sqT`` and
+    ``diag``, read through ``numpy.asarray``) → the port's
+    :class:`~osqp_tpu_torch.sparse_ops.SparseOp` of CSR matrices."""
+    from .sparse_ops import SparseOp, _CSR
+
+    tdt = torch_dtype(dtype)
+
+    def csr(bcoo):
+        if bcoo is None:
+            return None
+        idx = np.asarray(bcoo.indices)
+        return _CSR.from_coo(idx[:, 0], idx[:, 1], np.asarray(bcoo.data),
+                             tuple(bcoo.shape), tdt, device)[0]
+
+    diag = None if op.diag is None else _tensor(op.diag, device, dtype)
+    return SparseOp(csr(op.M), csr(op.MT), sqT=csr(op.sqT), diag=diag)
+
+
+def padded_op_to_torch(op, device, dtype):
+    """``osqp_tpu.padded_sparse.PaddedOp`` → the port's
+    :class:`~osqp_tpu_torch.padded_sparse.PaddedOp`."""
+    from .padded_sparse import PaddedOp
+
+    def vals(v):
+        return None if v is None else _tensor(v, device, dtype)
+
+    def index(v):
+        return torch.tensor(np.asarray(v), dtype=torch.int64, device=device)
+
+    return PaddedOp(vals(op.vals), index(op.cols), vals(op.tvals),
+                    index(op.tcols), tuple(op.shape),
+                    sq_tvals=vals(op.sq_tvals), diag=vals(op.diag))
+
+
+def sparse_model_to_torch(jax_model, device):
+    """A set-up ``osqp_tpu.sparse_core.SparseModel`` → a port
+    ``SparseModel`` on ``device`` in the same dtype, with the same
+    settings, routing, canonical CSC matrices, operators (or densified
+    matrices on the direct route), q, l, u and warm starts, so that both
+    packages solve from one state. A model of the banded backend or
+    sharded over a mesh has no counterpart in the port and raises."""
+    from .settings import Settings
+    from .sparse_core import SparseModel
+
+    if getattr(jax_model, "_band", None) is not None or \
+            getattr(jax_model, "_mesh", None) is not None:
+        raise NotImplementedError(
+            "the banded backend and mesh sharding are not ported (ROADMAP "
+            "queue 1 items 9 and 11)")
+    dtype = np.dtype(jax_model._dtype)
+    model = SparseModel(device=device)
+    settings = jax_model.settings.asdict()
+    settings["dtype"] = dtype
+    model.settings = Settings(**settings)
+    model.n, model.m = jax_model.n, jax_model.m
+    model._dtype = dtype
+    model._tdtype = torch_dtype(dtype)
+    model._direct = bool(jax_model._direct)
+    model._Pu_csc = jax_model._Pu_csc.copy()
+    model._A_csc = jax_model._A_csc.copy()
+    model._fmt = ("padded" if jax_model._make.__name__ == "padded_op_from_coo"
+                  else "bcoo")
+    if model._direct:
+        model._P_dense = _tensor(jax_model._P_dense, device, dtype)
+        model._A_dense = _tensor(jax_model._A_dense, device, dtype)
+    else:
+        conv = (padded_op_to_torch if model._fmt == "padded"
+                else sparse_op_to_torch)
+        model._P_op = conv(jax_model._P_op, device, dtype)
+        model._A_op = conv(jax_model._A_op, device, dtype)
+    model._q, model._l, model._u, model._x0, model._y0 = (
+        _tensor(getattr(jax_model, k), device, dtype)
+        for k in ("_q", "_l", "_u", "_x0", "_y0"))
+    model._is_setup = True
+    return model

@@ -12,6 +12,8 @@ The single-problem engine (:func:`init_factor`, :func:`admm_step`,
 :func:`solve_scaled`, the functional :func:`solve`) runs one problem's
 ADMM loop as a host loop of torch calls, with a direct (dense Cholesky)
 or an indirect (block-Jacobi CG) KKT solve; ``interface.Model`` drives it.
+The sparse engine (:mod:`osqp_tpu_torch.sparse_core`) runs the same loop
+on sparse operators, with a Jacobi-preconditioned CG.
 """
 
 from __future__ import annotations
@@ -111,12 +113,19 @@ class ResInfo(NamedTuple):
 
 
 def _mv(M, v):
-    """(..., r, c) @ (..., c) -> (..., r)."""
+    """(..., r, c) @ (..., c) -> (..., r); a sparse operator
+    (``sparse_ops.SparseOp``, ``padded_sparse.PaddedOp``) has no batch
+    axis and applies its own product."""
+    if not isinstance(M, torch.Tensor):
+        return M @ v
     return (M @ v[..., None])[..., 0]
 
 
 def _mtv(M, v):
-    """(..., r, c)^T @ (..., r) -> (..., c)."""
+    """(..., r, c)^T @ (..., r) -> (..., c); a sparse operator applies its
+    stored transpose."""
+    if not isinstance(M, torch.Tensor):
+        return M.T @ v
     return (v[..., None, :] @ M)[..., 0, :]
 
 
@@ -245,9 +254,10 @@ def scale_problem(data: QPData, scaling_iters: int):
 
 class FactorState(NamedTuple):
     """Linear-system state carried across solves: ``L`` is the Cholesky
-    factor of P̄+σI+Āᵀdiag(ρ)Ā (n, n) on the direct path, or the
-    (nb, bs, bs) block-Jacobi factors of its diagonal blocks on the
-    indirect (CG) path; ``rho_bar`` is a 0-d tensor."""
+    factor of P̄+σI+Āᵀdiag(ρ)Ā (n, n) on the direct path, or on the
+    indirect (CG) path the (nb, bs, bs) block-Jacobi factors of its
+    diagonal blocks (dense operators) or its (n,) Jacobi diagonal inverse
+    (sparse operators); ``rho_bar`` is a 0-d tensor."""
     L: torch.Tensor
     rho_vec: torch.Tensor
     rho_inv: torch.Tensor
@@ -260,12 +270,19 @@ _BJ_BLOCK = 128
 
 def _kkt_precompute(sdata: QPData, sigma, rho_vec, indirect: bool):
     """The factor of R = P̄ + σI + ĀᵀρĀ: its Cholesky factor (direct), or
-    the Cholesky factors of its diagonal blocks (indirect); a block whose
-    factorization fails (float32, near-singular) is the identity, so it
-    does not poison every preconditioner apply."""
+    for the indirect path the Cholesky factors of its diagonal blocks
+    (dense operators; a block whose factorization fails, in float32 near
+    singularity, is the identity, so it does not poison every
+    preconditioner apply) or the Jacobi diagonal diag(R)⁻¹ (sparse
+    operators, from their diagonal and squared-transpose companions)."""
     P, A = sdata.P, sdata.A
     if not indirect:
         return chol_factor(reduced_kkt(P, A, sigma, rho_vec))
+    if not isinstance(P, torch.Tensor):
+        d = P.diag + sigma
+        if A.shape[0] > 0:
+            d = d + A.sqT @ rho_vec
+        return 1.0 / d
     n, dtype, dev = P.shape[0], P.dtype, P.device
     bs = min(_BJ_BLOCK, n)
     nb = -(-n // bs)

@@ -24,7 +24,7 @@ from . import constants as C
 from .core import (constraint_masks, dyn_from_settings, init_factor,
                    resolve_cg_cap, scale_problem, solve_scaled, torch_dtype)
 from .linalg import chol_factor, precision_scope
-from .polish import polish as _polish_batch
+from .polish import polish
 from .settings import Settings
 from .sparse import csc_from_matrix, symmetric_from_triu
 from .types import Info, QPData, Results
@@ -42,16 +42,6 @@ def version() -> str:
 #: they are the JAX package's; the back-off resume state keeps the
 #: trajectory that of one unchunked solve.
 _CHUNK0 = 250
-
-
-def _polish_one(sdata, scal, dyn, delta, refine_iters, out):
-    """The batched polish on a batch of one; returns its fields without
-    the batch axis."""
-    sd = QPData(*(v[None] for v in sdata))
-    sc = type(scal)(*(v[None] for v in scal))
-    pol = _polish_batch(sd, sc, dyn, delta, refine_iters, out.ybar[None],
-                        out.pri_res[None], out.dua_res[None])
-    return type(pol)(*(v[0] for v in pol))
 
 
 class Model:
@@ -300,9 +290,10 @@ class Model:
 
     def _polish(self, dyn, out):
         s = self.settings
-        pol = _polish_one(self._sdata, self._scal, dyn,
-                          torch.tensor(s.delta, dtype=self._tdtype),
-                          s.polish_refine_iter, out)
+        pol = polish(self._sdata, self._scal, dyn,
+                     torch.tensor(s.delta, dtype=self._tdtype),
+                     s.polish_refine_iter, out.ybar, out.pri_res,
+                     out.dua_res)
         self._sync()
         return pol
 

@@ -11,13 +11,20 @@ The active set has a data-dependent size, so the reduced system is formed
 with a row mask, M = diag(mask)·Ā, and solved through its n×n Schur
 complement R = P̄ + δI + δ⁻¹MᵀM (dense Cholesky, fixed shapes).
 
-Every argument has a leading batch axis, so one call polishes the whole
-batch where the JAX package vmaps. Its vmapped repair ``while_loop`` runs
-the body for every lane while any lane continues and keeps a finished
-lane's state by a select; here that is a Python loop of at most
+The arguments may have a leading batch axis, so one call polishes the
+whole batch where the JAX package vmaps. Its vmapped repair ``while_loop``
+runs the body for every lane while any lane continues and keeps a
+finished lane's state by a select; here that is a Python loop of at most
 ``_POLISH_ROUNDS - 1`` rounds with ``torch.where`` selects, which stops when
 no lane made a pivot. Products, the Cholesky and the triangular solves are
 torch calls, as the JAX package leaves them to XLA.
+
+``indirect=True`` is the sparse engine's matrix-free polish: one problem,
+no batch axis, sparse operators (``sparse_ops.SparseOp`` or
+``padded_sparse.PaddedOp``) for P and A. The reduced system
+P̄ + δI + δ⁻¹Mᵀ M is applied as an operator and solved by CG to 1e-10 in at
+most 400 iterations, preconditioned by its Jacobi diagonal
+P̄.diag + δ + δ⁻¹(Ā.sqT @ mask).
 """
 
 from __future__ import annotations
@@ -27,18 +34,18 @@ from typing import NamedTuple
 import torch
 
 from .core import _mtv, _mv, residual_norms
-from .linalg import chol_factor, chol_solve, sym, with_precision
+from .linalg import cg_solve, chol_factor, chol_solve, sym, with_precision
 from .types import DynParams, QPData, ScalingData
 
 
 class PolishOutput(NamedTuple):
-    x: torch.Tensor        # (B, n) unscaled polished primal
-    y: torch.Tensor        # (B, m) unscaled polished dual
-    z: torch.Tensor        # (B, m) unscaled polished slack
-    obj_val: torch.Tensor  # (B,)
+    x: torch.Tensor        # (..., n) unscaled polished primal
+    y: torch.Tensor        # (..., m) unscaled polished dual
+    z: torch.Tensor        # (..., m) unscaled polished slack
+    obj_val: torch.Tensor  # (...,)
     pri_res: torch.Tensor
     dua_res: torch.Tensor
-    success: torch.Tensor  # (B,) bool: both residuals strictly improved
+    success: torch.Tensor  # (...,) bool: both residuals strictly improved
 
 
 #: Active-set rounds: round 0 guesses from the dual iterate's sign, each
@@ -48,24 +55,31 @@ class PolishOutput(NamedTuple):
 #: equality system inconsistent, so one-shot sign guessing is not enough.
 _POLISH_ROUNDS = 4
 
+#: The matrix-free polish's CG: tolerance and iteration cap.
+_CG_TOL, _CG_MAX_ITER = 1e-10, 400
+
 
 @with_precision
 def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
            refine_iters, ybar, admm_pri_res, admm_dua_res,
            indirect: bool = False) -> PolishOutput:
-    """Polish the batch's (scaled) ADMM solutions: ``sdata``/``scal`` as
-    the per-lane engine stacks them, ``ybar`` (B, m) the scaled dual
-    iterate, ``admm_pri_res``/``admm_dua_res`` (B,) the ADMM residuals to
-    beat. Direct (dense Cholesky) path only."""
-    if indirect:
-        raise NotImplementedError(
-            "matrix-free polish (indirect=True) belongs to the sparse "
-            "engine, which is not ported yet (ROADMAP queue 1 item 8)")
+    """Polish the (scaled) ADMM solutions: ``sdata``/``scal`` as the
+    per-lane engine stacks them (or one problem's), ``ybar`` (..., m) the
+    scaled dual iterate, ``admm_pri_res``/``admm_dua_res`` (...,) the ADMM
+    residuals to beat. ``indirect=True``: the matrix-free polish of one
+    problem on sparse operators (module docstring)."""
     P, q, A, l, u = sdata
+    if indirect and isinstance(P, torch.Tensor):
+        raise ValueError("the matrix-free polish (indirect=True) takes one "
+                         "problem's sparse operators (SparseOp, PaddedOp), "
+                         "not dense tensors")
     dtype, dev = q.dtype, q.device
     n, m = q.shape[-1], l.shape[-1]
     delta = torch.as_tensor(delta, dtype=dtype)
-    eye = torch.eye(n, dtype=dtype, device=dev)
+    if indirect:
+        cg_tol = torch.tensor(_CG_TOL, dtype=dtype)
+    else:
+        eye = torch.eye(n, dtype=dtype, device=dev)
     rhs1 = -q
 
     def solve_with_set(low, upp):
@@ -78,15 +92,33 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
             # Aᵀ(mask ∘ v), the masked-active-rows transpose product
             return _mtv(A, mask * v)
 
-        R = P + delta * eye
-        if m > 0:
-            Ma = mask[..., :, None] * A
-            R = R + (Ma.mT @ Ma) / delta
-        Lp = chol_factor(sym(R))
+        if indirect:
+            def R_matvec(v):
+                out = P @ v + delta * v
+                if m > 0:
+                    out = out + t(mask * (A @ v)) / delta
+                return out
+            d = P.diag + delta
+            if m > 0:
+                d = d + (A.sqT @ mask) / delta
+            M_inv = 1.0 / d
+
+            def solve_R(r):
+                return cg_solve(R_matvec, r, torch.zeros_like(r), cg_tol,
+                                _CG_MAX_ITER, M_inv_diag=M_inv)
+        else:
+            R = P + delta * eye
+            if m > 0:
+                Ma = mask[..., :, None] * A
+                R = R + (Ma.mT @ Ma) / delta
+            Lp = chol_factor(sym(R))
+
+            def solve_R(r):
+                return chol_solve(Lp, r)
         rhs2 = mask * b
 
         def solve_reg(r1, r2):
-            dx = chol_solve(Lp, r1 + t(r2) / delta)
+            dx = solve_R(r1 + t(r2) / delta)
             dy = mask * (_mv(A, dx) - r2) / delta + (1.0 - mask) * r2
             return dx, dy
 
@@ -130,7 +162,7 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
         hot_d = idx == kd
         hot_a = idx == ka
         add_low = torch.gather(viol_l, -1, ka) >= torch.gather(viol_u, -1, ka)
-        drop, add = do_drop[:, None], do_add[:, None]
+        drop, add = do_drop[..., None], do_add[..., None]
         low2 = torch.where(drop, low & ~hot_d,
                            torch.where(add & add_low, low | hot_a, low))
         upp2 = torch.where(drop, upp & ~hot_d,
@@ -140,14 +172,14 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
     if m > 0:
         # a lane that made no pivot keeps its state, and so do lanes that
         # stopped earlier: the vmapped while_loop's select
-        cont = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
+        cont = torch.ones(q.shape[:-1], dtype=torch.bool, device=dev)
         for _ in range(_POLISH_ROUNDS - 1):
             low2, upp2, changed = repair(low, upp, x, y)
             cont = cont & changed
             if not bool(cont.any()):
                 break
             x2, y2 = solve_with_set(low2, upp2)
-            c = cont[:, None]
+            c = cont[..., None]
             low, upp = torch.where(c, low2, low), torch.where(c, upp2, upp)
             x, y = torch.where(c, x2, x), torch.where(c, y2, y)
 
@@ -163,7 +195,7 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
     better_d = res.dua_res < torch.clamp(admm_dua_res, min=tiny)
     success = finite & better_p & better_d
     if m > 0:
-        stol = (tol0 * (1.0 + torch.amax(torch.abs(y), dim=-1)))[:, None]
+        stol = (tol0 * (1.0 + torch.amax(torch.abs(y), dim=-1)))[..., None]
         success = (success & torch.all(~low | (y <= stol), dim=-1)
                    & torch.all(~upp | (y >= -stol), dim=-1))
 

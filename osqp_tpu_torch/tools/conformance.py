@@ -5,19 +5,26 @@ Runs the port on the sweep's cells and holds each status to the float64
 artifact ``conformance.json``::
 
     python3 -m osqp_tpu_torch.tools.conformance [--device cpu|cuda]
-        [--kkt-modes inverse,shared,fused] [--columns torch-direct,torch-cg]
-        [--sizes S]
+        [--kkt-modes inverse,shared,fused]
+        [--columns torch-direct,torch-cg,torch-sparse,torch-sparse-mf]
+        [--sizes S[,M,L]] [--workers N]
 
 Columns: ``BatchedSolver`` of the port (one lane) in each of
-``--kkt-modes``, held to the artifact's ``batched`` rows; and ``Model`` of
+``--kkt-modes``, held to the artifact's ``batched`` rows; ``Model`` of
 the port with the direct or the CG KKT solve (``--columns`` torch-direct,
-torch-cg), held to its ``jax-direct`` and ``jax-cg`` rows. Cells, from the
+torch-cg), held to its ``jax-direct`` and ``jax-cg`` rows; and
+``SparseModel`` of the port (scipy.sparse input) with its default routing
+(``torch-sparse``: the dense direct factor at these sizes, the
+matrix-free path past its bound) or the matrix-free CG path
+(``torch-sparse-mf``, ``linsys_solver="indirect"``), held to the
+``sparse`` and ``sparse-mf`` rows. Cells, from the
 port's copy of the problem families: ``solved`` (each family at each size
 of ``SIZE_GRID``), and at size S ``primal_inf``, ``dual_inf`` and
 ``non_convex``, built by copies of the script's constructors (its
 :285-313), and for the Model columns at size S the ``update`` cells
 (solve, ``update(q, l, u)``, a re-solve warm-started from the previous
-solution; the script's :368-377). Settings are the script's
+solution, by ``warm_start(x, y)`` for a SparseModel; the script's
+:368-377, :405-416). Settings are the script's
 float64 columns': eps 1e-6 (``lp_qp`` 1e-3), max_iter 100000, polish on.
 A cell passes when its status equals the artifact's (a non-convex Model
 cell fails at setup, "setup_error"); a Solved cell must also have
@@ -40,12 +47,14 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.sparse as sp
 
 from .. import constants as C
 from ..batch import BatchedSolver
 from ..interface import Model
 from ..problems import FAMILIES, SIZE_GRID
 from ..settings import Settings
+from ..sparse_core import SparseModel
 from ..utils.ipm import solve_qp_ipm
 
 EPS = 1e-6
@@ -56,6 +65,10 @@ KINDS = ("solved", "primal_inf", "dual_inf", "non_convex")
 #: the Model columns: their linsys_solver and the artifact's engine
 MODEL_COLUMNS = {"torch-direct": ("direct", "jax-direct"),
                  "torch-cg": ("cg", "jax-cg")}
+#: the SparseModel columns: their linsys_solver and the artifact's engine
+SPARSE_COLUMNS = {"torch-sparse": ("qdldl", "sparse"),
+                  "torch-sparse-mf": ("indirect", "sparse-mf")}
+SINGLE_COLUMNS = {**MODEL_COLUMNS, **SPARSE_COLUMNS}
 #: the sweep's float64 gates against the interior-point oracle
 OBJ_RTOL, X_ATOL = 1e-5, 5e-4
 ARTIFACT = Path(__file__).resolve().parents[2] / "conformance.json"
@@ -137,11 +150,11 @@ def cells(sizes=("S",)):
     return out
 
 
-def artifact_statuses(path=ARTIFACT, engine="batched"):
+def artifact_statuses(path=ARTIFACT, engine="batched", field="status"):
     """{(kind, family, size): status} of the artifact's rows of
-    ``engine``."""
+    ``engine`` (or another ``field`` of them, e.g. "iters")."""
     rows = json.loads(Path(path).read_text())["rows"]
-    return {(r["kind"], r["family"], r["size"]): r["status"]
+    return {(r["kind"], r["family"], r["size"]): r.get(field)
             for r in rows if r["engine"] == engine}
 
 
@@ -222,36 +235,55 @@ def _judge(row, kind, data, eps, x, y, z, prim_cert, dual_cert):
     return ok
 
 
-def check_model_cell(kind, family, size, column, device, expected):
-    """Solve one cell through the port's ``Model`` in float64 (``column`` a
-    key of ``MODEL_COLUMNS``) and judge it. The residual check takes
-    z = clip(Ax, l, u), since ``Results`` carries no z; an update cell's
-    objective is held to the oracle's on the updated data (a cell whose
-    oracle does not converge passes on its status, as the script skips
-    it). Returns a row dict with ``ok``."""
+def check_model_cell(kind, family, size, column, device, expected,
+                     state=None):
+    """Solve one cell through the port's ``Model`` or ``SparseModel`` in
+    float64 (``column`` a key of ``SINGLE_COLUMNS``) and judge it. The
+    residual check takes z = clip(Ax, l, u), since ``Results`` carries no
+    z; an update cell's objective is held to the oracle's on the updated
+    data (a cell whose oracle does not converge passes on its status, as
+    the script skips it). ``state``: a dict that a solved cell fills with
+    its model and result, and from which the update cell of the same
+    family and column continues (its first solve is the solved cell's:
+    the same problem, settings and cold start), so its ``seconds`` count
+    the update and the re-solve. Returns a row dict with ``ok``."""
     P, q, A, l, u = cell("solved" if kind == "update" else kind, family,
                          size)
     eps = FAMILY_EPS.get(family, EPS)
     kw = dict(verbose=False, eps_abs=eps, eps_rel=eps, max_iter=MAX_ITER,
-              polish=True, linsys_solver=MODEL_COLUMNS[column][0],
+              polish=True, linsys_solver=SINGLE_COLUMNS[column][0],
               dtype=np.float64)
     row = dict(kind=kind, family=family, size=size, column=column,
                expected=expected, iters=0)
     t0 = time.perf_counter()
-    model = Model(device=device)
-    try:
-        model.setup(P=P, q=q, A=A, l=l, u=u, **kw)
-    except ValueError as e:
-        # the direct paths fail at setup on a non-convex P + sigma I
-        msg = str(e).lower()
-        row.update(status="setup_error", seconds=time.perf_counter() - t0,
-                   ok=expected == "setup_error" and (
-                       "convex" in msg or "positive" in msg))
-        return row
-    r = model.solve()
+    sparse = column in SPARSE_COLUMNS
+    if kind == "update" and state:
+        model, r = state.pop("model"), state.pop("r")
+        row["first_solve_shared"] = True
+    else:
+        model = (SparseModel if sparse else Model)(device=device)
+        try:
+            if sparse:
+                model.setup(P=sp.csc_matrix(P), q=q, A=sp.csc_matrix(A),
+                            l=l, u=u, **kw)
+            else:
+                model.setup(P=P, q=q, A=A, l=l, u=u, **kw)
+        except ValueError as e:
+            # the direct paths fail at setup on a non-convex P + sigma I
+            msg = str(e).lower()
+            row.update(status="setup_error",
+                       seconds=time.perf_counter() - t0,
+                       ok=expected == "setup_error" and (
+                           "convex" in msg or "positive" in msg))
+            return row
+        r = model.solve()
+        if kind == "solved" and state is not None:
+            state.update(model=model, r=r)
     if kind == "update":
         q, l, u = update_data(q, l, u)
         model.update(q=q, l=l, u=u)
+        if sparse:
+            model.warm_start(x=r.x, y=r.y)
         r = model.solve()   # warm-started from the previous solution
     row.update(status=r.info.status, iters=r.info.iter,
                seconds=time.perf_counter() - t0,
@@ -284,26 +316,88 @@ def check_cell(kind, family, size, kkt_mode, device, expected):
     return row
 
 
-def run_model_columns(columns, device, sizes=("S",), artifact=ARTIFACT,
-                      say=print):
-    """Every cell of every Model column (with S, the update cells too);
-    returns the rows."""
-    rows = []
+def check_cells(todo, column, device, expected):
+    """Check the cells ``todo`` ((kind, family, size) each) of one column in
+    order; an update cell continues from the solved cell of its family
+    when that came first. Returns the rows."""
+    state = {}
+    return [check_model_cell(kind, family, size, column, device,
+                             expected[(kind, family, size)], state=state)
+            for kind, family, size in todo]
+
+
+def worker_pool(workers):
+    """A pool of spawned worker processes, each with one BLAS thread."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    keys = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(dict.fromkeys(keys, "1"))
+    try:
+        return ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def column_tasks(columns, device, sizes=("S",), artifact=ARTIFACT):
+    """The cells of the single-problem columns as arguments of
+    :func:`check_cells`: per family and column the S solved cell with its
+    update cell, every other cell alone; the tasks of most iterations in
+    the artifact first (so that a pool starts its longest tasks first)."""
+    tasks = []
     for column in columns:
-        expected = artifact_statuses(artifact, MODEL_COLUMNS[column][1])
-        todo = cells(sizes)
-        if "S" in sizes:
-            todo += [("update", f, "S") for f in sorted(FAMILIES)]
-        for kind, family, size in todo:
-            row = check_model_cell(kind, family, size, column, device,
-                                   expected[(kind, family, size)])
-            rows.append(row)
-            say(f"{column:12s} {kind:10s} {family:18s} {size} "
-                f"{row['status']:18s} (artifact {row['expected']}) it="
-                f"{row['iters']} polish={row.get('status_polish', '-')} "
-                f"cert={row.get('cert_ok', '-')} "
-                f"{row['seconds']:.2f}s {'OK' if row['ok'] else 'FAIL'}")
-    return rows
+        engine = SINGLE_COLUMNS[column][1]
+        expected = artifact_statuses(artifact, engine)
+        iters = artifact_statuses(artifact, engine, "iters")
+        for kind, family, size in cells(sizes):
+            todo = [(kind, family, size)]
+            if kind == "solved" and size == "S":
+                todo.append(("update", family, "S"))
+            cost = sum(iters[c] or 0 for c in todo)
+            tasks.append((cost, (todo, column, device,
+                                 {c: expected[c] for c in todo})))
+    tasks.sort(key=lambda t: -t[0])
+    return [t for _, t in tasks]
+
+
+def cell_line(row):
+    """One printed line of a single-problem cell."""
+    return (f"{row['column']:12s} {row['kind']:10s} {row['family']:18s} "
+            f"{row['size']} {row['status']:18s} (artifact "
+            f"{row['expected']}) it={row['iters']} "
+            f"polish={row.get('status_polish', '-')} "
+            f"cert={row.get('cert_ok', '-')} {row['seconds']:.2f}s "
+            f"{'OK' if row['ok'] else 'FAIL'}")
+
+
+def run_model_columns(columns, device, sizes=("S",), artifact=ARTIFACT,
+                      say=print, workers=0):
+    """Every cell of every single-problem column (with S, the update cells
+    too, each continuing from its family's solved cell); returns the rows.
+    ``workers`` > 0 spreads the tasks of :func:`column_tasks` over that
+    many spawned processes, and prints each task's cells as it ends."""
+    tasks = column_tasks(columns, device, sizes, artifact)
+    if workers > 0:
+        from concurrent.futures import as_completed
+        with worker_pool(workers) as pool:
+            futures = [pool.submit(check_cells, *t) for t in tasks]
+            for f in as_completed(futures):
+                for row in f.result():
+                    say(cell_line(row))
+            results = [f.result() for f in futures]
+    else:
+        results = []
+        for t in tasks:
+            results.append(check_cells(*t))
+            for row in results[-1]:
+                say(cell_line(row))
+    return [r for res in results for r in res]
 
 
 def run_column(kkt_modes, device, sizes=("S",), artifact=ARTIFACT,
@@ -329,15 +423,19 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--kkt-modes", default="inverse")
     ap.add_argument("--columns", default="",
-                    help="Model columns: torch-direct,torch-cg")
+                    help="single-problem columns: torch-direct,torch-cg,"
+                    "torch-sparse,torch-sparse-mf")
     ap.add_argument("--sizes", default="S")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="spread the single-problem columns' cells over "
+                    "this many processes")
     a = ap.parse_args(argv)
     t0 = time.perf_counter()
     sizes = tuple(a.sizes.split(","))
     rows = run_column([k for k in a.kkt_modes.split(",") if k], a.device,
                       sizes)
     rows += run_model_columns([c for c in a.columns.split(",") if c],
-                              a.device, sizes)
+                              a.device, sizes, workers=a.workers)
     n_ok = sum(r["ok"] for r in rows)
     print(f"{n_ok}/{len(rows)} cells pass on {a.device} in "
           f"{time.perf_counter() - t0:.1f} s")

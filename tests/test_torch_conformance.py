@@ -13,8 +13,10 @@ validity check. The port's ``Model`` columns, torch-direct and torch-cg,
 are held the same way to the artifact's ``jax-direct`` and ``jax-cg``
 rows (a non-convex cell fails at setup); their update cells re-solve
 warm after ``update(q, l, u)`` and meet the oracle's objective on the
-updated data. The S cells run here; the M and L cells and the
-update-and-re-solve cells are marked ``slow``.
+updated data. The port's ``SparseModel`` columns, torch-sparse (default
+routing) and torch-sparse-mf (the matrix-free CG path), are held the same
+way to the ``sparse`` and ``sparse-mf`` rows. The S cells run here; the M
+and L cells and the update-and-re-solve cells are marked ``slow``.
 """
 
 import numpy as np
@@ -120,7 +122,7 @@ def test_column_covers_the_artifacts_batched_s_cells():
 
 
 def _check_model(kind, family, size, column):
-    engine = CF.MODEL_COLUMNS[column][1]
+    engine = CF.SINGLE_COLUMNS[column][1]
     expected = CF.artifact_statuses(engine=engine)[(kind, family, size)]
     row = CF.check_model_cell(kind, family, size, column, "cpu", expected)
     assert row["status"] == expected
@@ -158,3 +160,33 @@ def test_model_columns_cover_the_artifacts_s_cells():
         assert set(CF.cells(("S",))) == s_cells and len(s_cells) == 48
         assert {k for k in rows if k[0] == "update"} == {
             ("update", f, "S") for f in FAMILIES}
+
+
+@pytest.mark.parametrize("column", sorted(CF.SPARSE_COLUMNS))
+@pytest.mark.parametrize("kind", CF.KINDS)
+@pytest.mark.parametrize("family", FAMILIES)
+def test_sparse_conformance_s_cell(family, kind, column):
+    _check_model(kind, family, "S", column)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("column", sorted(CF.SPARSE_COLUMNS))
+@pytest.mark.parametrize("size", ["M", "L"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_sparse_conformance_solved_cell_large(family, size, column):
+    _check_model("solved", family, size, column)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("column", sorted(CF.SPARSE_COLUMNS))
+@pytest.mark.parametrize("family", FAMILIES)
+def test_sparse_conformance_update_cell(family, column):
+    _check_model("update", family, "S", column)
+
+
+def test_sparse_columns_cover_the_artifacts_cells():
+    for column, (_, engine) in CF.SPARSE_COLUMNS.items():
+        rows = CF.artifact_statuses(engine=engine)
+        assert set(rows) == set(CF.cells(("S", "M", "L"))) | {
+            ("update", f, "S") for f in FAMILIES}
+        assert len(rows) == 84

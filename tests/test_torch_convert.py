@@ -102,3 +102,67 @@ def test_dyn_params_convert_like_dyn_from_settings():
             assert a.item() == b.item(), f
         else:
             assert a == b and type(a) is int, f
+
+
+def _sparse_problem(seed=3, n=80, m=160):
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    Ph = sp.random(n, n, density=0.05, random_state=rng, format="csc")
+    P = (Ph.T @ Ph + 0.5 * sp.eye(n)).tocsc()
+    A = sp.random(m, n, density=0.05, random_state=rng, format="csc")
+    return P, rng.randn(n), A, -1 - rng.rand(m), 1 + rng.rand(m)
+
+
+import pytest  # noqa: E402
+
+
+@pytest.mark.parametrize("route", [dict(), dict(linsys_solver="indirect"),
+                                   dict(linsys_solver="indirect",
+                                        sparse_format="padded")])
+def test_sparse_model_state_carried_across(route):
+    """A JAX SparseModel, set up, solved once (so warm starts exist) and
+    updated, is carried into the port; the next solve of both packages
+    gives the same status, iterations and x (float64)."""
+    from osqp_tpu.sparse_core import SparseModel as JaxSparse
+    P, q, A, l, u = _sparse_problem()
+    jm = JaxSparse().setup(P=P, q=q, A=A, l=l, u=u, **KW, **route)
+    jm.solve()
+    jm.update(q=0.5 * q)
+    tm = convert.sparse_model_to_torch(jm, "cpu")
+    assert tm._direct == jm._direct and tm.dimensions() == (80, 160)
+    rj, rt = jm.solve(), tm.solve()
+    assert (rt.info.status, rt.info.iter, rt.info.rho_updates) == (
+        rj.info.status, rj.info.iter, rj.info.rho_updates)
+    assert rt.info.status == "Solved"
+    np.testing.assert_allclose(rt.x, rj.x, rtol=1e-7, atol=1e-9)
+    # the carried model keeps the update surface: value-only P, then both
+    Pu = __import__("scipy.sparse", fromlist=["triu"]).triu(P).tocsc()
+    Pu.sort_indices()
+    for mdl in (jm, tm):
+        mdl.update(Px=1.5 * Pu.data)
+    rj, rt = jm.solve(), tm.solve()
+    assert (rt.info.status, rt.info.iter) == (rj.info.status, rj.info.iter)
+    np.testing.assert_allclose(rt.x, rj.x, rtol=1e-7, atol=1e-9)
+
+
+def test_sparse_operators_carried_across():
+    """The JAX package's operators (BCOO and ELL) as the port's: the same
+    products."""
+    import jax.numpy as jnp
+    from osqp_tpu.padded_sparse import padded_op_from_coo
+    from osqp_tpu.sparse_ops import sparse_op_from_coo
+    import scipy.sparse as sp
+    P, q, A, l, u = _sparse_problem(seed=5)
+    Ac = sp.coo_matrix(A)
+    v = np.random.RandomState(0).randn(A.shape[1])
+    w = np.random.RandomState(1).randn(A.shape[0])
+    for make, conv in ((sparse_op_from_coo, convert.sparse_op_to_torch),
+                       (padded_op_from_coo, convert.padded_op_to_torch)):
+        jop = make(Ac.row, Ac.col, Ac.data, A.shape, jnp.float64)
+        top = conv(jop, "cpu", np.float64)
+        np.testing.assert_allclose((top @ torch.tensor(v)).numpy(),
+                                   np.asarray(jop @ jnp.asarray(v)),
+                                   rtol=1e-12)
+        np.testing.assert_allclose((top.sqT @ torch.tensor(w)).numpy(),
+                                   np.asarray(jop.sqT @ jnp.asarray(w)),
+                                   rtol=1e-12)

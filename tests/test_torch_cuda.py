@@ -19,7 +19,10 @@ polished solves against the same solve through the plain twins also
 solves the unlimited solve's statuses. The single-problem ``Model`` on the
 card against ``device="cpu"`` in float64: statuses, iterations, rho
 updates and ``status_polish`` identical, x, y and certificates within
-1e-6.
+1e-6. The sparse operators (CSR by cuSPARSE, ELL by gathers) on the card
+against the CPU within rtol 1e-12; ``SparseModel`` and ``Problem`` on the
+card against the CPU in float64: statuses equal, x within 1e-6 (and the
+dense-routed SparseModel and ``Problem`` with iterations equal too).
 """
 
 from unittest import mock
@@ -696,3 +699,125 @@ def test_model_tf32_on_card_status_equals_float32(dev):
                                     dtype=np.float32, matmul_precision=mp)
         st.append(m.solve().info.status)
     assert st[0] == st[1] == "Solved"
+
+
+# ---------------------------------------------------------------------------
+# The sparse engine and the modeling layer on the card (no hand kernel):
+# float64, statuses equal to the same solve on the CPU, x within 1e-6
+# ---------------------------------------------------------------------------
+
+def _coo(m, n, density, seed):
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    M = sp.coo_matrix(sp.random(m, n, density=density, random_state=rng)
+                      + sp.eye(m, n))
+    return M.row, M.col, M.data, (m, n)
+
+
+@pytest.mark.parametrize("fmt", ["csr", "ell"])
+def test_sparse_operators_on_card_match_cpu(dev, fmt):
+    """Products, transposed products, the squared transpose and scaling
+    of a CSR (cuSPARSE) or ELL (gather) operator on the card against the
+    CPU, float64, rtol 1e-12."""
+    from osqp_tpu_torch import sparse_core as TSC
+    from osqp_tpu_torch.padded_sparse import padded_op_from_coo
+    from osqp_tpu_torch.sparse_ops import sparse_op_from_coo
+    make = sparse_op_from_coo if fmt == "csr" else padded_op_from_coo
+    rows, cols, vals, shape = _coo(3000, 2000, 0.002, 0)
+    ops = [make(rows, cols, vals, shape, torch.float64, d)
+           for d in (dev, "cpu")]
+    rng = np.random.RandomState(1)
+    v, w = rng.randn(shape[1]), rng.randn(shape[0])
+    rs, cs = 0.5 + rng.rand(shape[0]), 0.5 + rng.rand(shape[1])
+    for k, (op, d) in enumerate(zip(ops, (dev, "cpu"))):
+        t = lambda a: torch.tensor(a, device=d)  # noqa: E731
+        sc = TSC._scale_op(op, t(rs), t(cs), 1.3)
+        ops[k] = [(o @ t(v)).cpu().numpy() for o in (op, sc)] + [
+            (o @ t(w)).cpu().numpy() for o in (op.T, op.sqT, sc.T, sc.sqT)]
+    for g, c in zip(*ops):
+        np.testing.assert_allclose(g, c, rtol=1e-12, atol=1e-14)
+
+
+def _sparse_lasso(n=2000, m=3000):
+    import scipy.sparse as sp
+    rng = np.random.RandomState(1)
+    P = sp.diags(1.0 + rng.rand(n)).tocsc()
+    A = sp.random(m, n, density=0.002, random_state=rng, format="csc")
+    A = (A + sp.eye(m, n)).tocsc()
+    return P, rng.randn(n), A, -np.ones(m), np.ones(m)
+
+
+@pytest.mark.parametrize("fmt", ["bcoo", "padded"])
+def test_sparse_model_on_card_matches_cpu_f64(dev, fmt):
+    """The n=2,000 sparse problem (matrix-free: 80 MB densified) through
+    SparseModel on the card and on the CPU: cold, update(q) and a warm
+    re-solve, then polish by Jacobi CG past the dense bound."""
+    from osqp_tpu_torch import sparse_core as TSC
+    P, q, A, l, u = _sparse_lasso()
+    kw = dict(verbose=False, eps_abs=1e-4, eps_rel=1e-4, dtype=np.float64,
+              sparse_format=fmt)
+    gpu, cpu = (TSC.SparseModel(device=d).setup(P=P, q=q, A=A, l=l, u=u,
+                                                **kw) for d in (dev, "cpu"))
+    assert not gpu._direct and gpu._A_op.device.type == "cuda"
+    for step in range(2):
+        rg, rc = gpu.solve(), cpu.solve()
+        assert rg.info.status == rc.info.status == "Solved"
+        np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-6)
+        gpu.update(q=0.8 * q)
+        cpu.update(q=0.8 * q)
+    with mock.patch.object(TSC, "_DENSE_ROUTE_N", 8):
+        gpu, cpu = (TSC.SparseModel(device=d).setup(
+            P=P, q=q, A=A, l=l, u=u, polish=True, **kw)
+            for d in (dev, "cpu"))
+        rg, rc = gpu.solve(), cpu.solve()
+    assert rg.info.status == rc.info.status == "Solved"
+    assert rg.info.status_polish == rc.info.status_polish
+    np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-6)
+
+
+def test_sparse_model_dense_route_on_card_matches_cpu_f64(dev):
+    """A small problem in sparse format routes to the dense factor: the
+    card against the CPU, polished."""
+    import scipy.sparse as sp
+    from osqp_tpu_torch import sparse_core as TSC
+    from osqp_tpu_torch.problems import FAMILIES as TF
+    P, q, A, l, u = TF["control_qp"]()
+    kw = dict(verbose=False, eps_abs=1e-6, eps_rel=1e-6, polish=True,
+              dtype=np.float64)
+    gpu, cpu = (TSC.SparseModel(device=d).setup(
+        P=sp.csc_matrix(P), q=q, A=sp.csc_matrix(A), l=l, u=u, **kw)
+        for d in (dev, "cpu"))
+    assert gpu._direct and gpu._P_dense.is_cuda
+    _assert_model_match(gpu.solve(), cpu.solve())
+
+
+def test_problem_on_card_matches_cpu_f64(dev):
+    """The modeling layer over the card's Model: build, optimize, modify
+    values (no re-setup), add a row (re-setup), against the CPU."""
+    from osqp_tpu_torch.modeling import Problem
+    pair = [Problem(device=d, verbose=False, eps_abs=1e-8, eps_rel=1e-8,
+                    dtype=np.float64) for d in (dev, "cpu")]
+    rng = np.random.RandomState(0)
+    M = rng.randn(6, 6)
+    P = M.T @ M + np.eye(6)
+    q = rng.randn(6)
+    A = rng.randn(4, 6)
+    cons = []
+    for p in pair:
+        p.add_variables(6)
+        p.set_objective(quadratic=P, affine=q)
+        cons.append([p.add_constraint(A[i], lb=-1.0, ub=1.0)
+                     for i in range(4)])
+    results = [p.optimize() for p in pair]
+    _assert_model_match(*results)
+    inner = pair[0].raw_solver()
+    assert inner.device.type == "cuda"
+    for p, cs in zip(pair, cons):
+        p.set_constraint_bounds(cs[0], -0.5, 0.5)
+        p.set_objective_coefficient(2, 3.0)
+    _assert_model_match(*(p.optimize() for p in pair))
+    assert pair[0].raw_solver() is inner
+    for p in pair:
+        p.add_constraint({0: 1.0, 5: 1.0}, ub=0.2)
+    _assert_model_match(*(p.optimize() for p in pair))
+    assert pair[0].raw_solver() is not inner

@@ -234,9 +234,11 @@ def test_polish_float32():
 
 
 def test_polish_indirect_refuses():
+    # the matrix-free polish takes one problem's sparse operators
+    # (tests/test_torch_sparse_ops.py); a dense batch is refused
     P, q, A, l, u = make_batch(2, 4, 6)
     sdata, scal, dyn, out = _admm(P, q, A, l, u)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(ValueError, match="sparse operators"):
         TPOL.polish(*_args(sdata, scal, dyn, out.ybar, out), indirect=True)
 
 
