@@ -101,20 +101,40 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    sets up anew; (c) and (a) run first, in a process of their own (after
    phase 9's profiler trace every launch of this process is slower);
    (d) it checks that the phase launched none of the three kernels;
-11. prints one JSON line of the three kernels (launch counts of their own
-   paths and of phases 8, 9 and 10, agreement with the twins, times, and
-   the least time the card could take for the same work), the nvidia-smi
-   line, and last the device line ``{"ok": true, "device": {...}}``.
+11. drives the structured engine and the banded backend, which run no
+   hand kernel, in a fresh spawned process
+   (``osqp_tpu_torch/tools/structured_mpc.py``): (a) the JAX package's
+   middle-path configuration, control_qp(nx=30, nu=10, T=500) (n=20,000,
+   m=35,000, stage size 40), float32, eps 1e-3, through
+   ``BlockTridiagSolver(device="cuda")`` with kkt_solver "cr" and "scan":
+   setup, the first solve, a cold solve after it and a warm re-solve, all
+   Solved; a float64 host check of the solution; the setup's float64
+   cyclic-reduction factor solving R x = r to a relative residual of at
+   most 1e-10 against scipy's spsolve; cr_solve and Aᵀw timed alone; one
+   warm solve traced for launches per iteration and the idle share;
+   (b) 32 lanes of perturbed q, all Solved; a 5-step solve_rollout equal
+   to a host loop of solve; polish=True; time_limit with its chunk count;
+   (c) chain_qp(n=8192, bw=8) through ``BandedModel`` on "cuda" and on
+   "cpu" in the same process, and ``SparseModel(linsys_solver="mkl
+   pardiso")`` routed to it; (d) the 14 float64 cells of the
+   torch-structured and torch-banded conformance columns on the card,
+   each status equal to conformance.json's ``structured``/``banded`` row;
+   (e) it checks that the phase launched none of the three kernels;
+12. prints one JSON line of the three kernels (launch counts of their own
+   paths and of phases 8, 9, 10 and 11, agreement with the twins, times,
+   and the least time the card could take for the same work), the
+   nvidia-smi line, and last the device line ``{"ok": true, "device":
+   {...}}``.
 
-Each path (4, 6, 7, each of phase 8's, phase 9 and phase 10) runs with
+Each path (4, 6, 7, each of phase 8's, phases 9, 10 and 11) runs with
 every launch counter set to 0 just before it and read just after (a
 worker process reports the launches it made, added to its phase's). Any
 failed check raises, so the exit code is non-zero and no device line is
 printed. Without a GPU, or outside a checkout, it exits non-zero too. The
-compiler's register/shared-memory report, phase 8's, 9's and 10's
-per-cell conformance lines and phase 9's and 10's numbers
-(model_phase.json, sparse_phase.json) go to the output directory beside
-the run (``out_dir`` in ``run``).
+compiler's register/shared-memory report, phase 8's, 9's, 10's and 11's
+per-cell conformance lines and phase 9's, 10's and 11's numbers
+(model_phase.json, sparse_phase.json, structured_phase.json) go to the
+output directory beside the run (``out_dir`` in ``run``).
 """
 
 import functools
@@ -963,6 +983,68 @@ def phase10_sparse(torch, reset_counts, counts, out_dir, oracles):
     return launches, nums
 
 
+def timed_structured():
+    """Phase 11 (a)-(d) in a worker process of its own. Returns (their
+    numbers, the per-cell lines, the three kernels' launches over them)."""
+    import torch
+    from osqp_tpu_torch.tools import conformance as CF
+    from osqp_tpu_torch.tools import structured_mpc as SM
+    kernels = kernel_wrappers()
+    before = {k: fn.launches for k, fn in kernels.items()}
+    t0 = time.perf_counter()
+    nums = SM.run(torch, device="cuda", say=say)
+    nums["abc_s"] = time.perf_counter() - t0
+    # -- (d) the structured-engine conformance columns on the card --
+    t0 = time.perf_counter()
+    cols = sorted(CF.BANDED_COLUMNS)
+    rows = [r for t in CF.column_tasks(cols, "cuda", ("S", "M", "L"))
+            for r in CF.check_cells(*t)]
+    nums["cells_s"] = time.perf_counter() - t0
+    lines = [CF.cell_line(r) for r in rows]
+    for col in cols:
+        mine = [r for r in rows if r["column"] == col]
+        say(f"[11d] {col} cells (S, M, L, status and update), float64 on "
+            f"the card: {sum(r['ok'] for r in mine)}/{len(mine)} pass "
+            f"(statuses equal to conformance.json's "
+            f"{CF.BANDED_COLUMNS[col][1]} rows), "
+            f"{sum(r['seconds'] for r in mine):.1f} s")
+    for r in rows:
+        if not r["ok"]:
+            say(f"[11d] FAIL {CF.cell_line(r)}")
+    require(len(rows) == 14 and all(r["ok"] for r in rows),
+            "[11d] a structured-engine conformance cell failed")
+    torch.cuda.synchronize()
+    return nums, lines, {k: fn.launches - before[k]
+                         for k, fn in kernels.items()}
+
+
+def phase11_structured(torch, reset_counts, counts, out_dir):
+    """Phase 11: the structured engine and the banded backend at the MPC
+    horizon, in a fresh process (after phase 9's profiler trace this
+    process's launches are slower). Returns (launches of the three
+    kernels over the phase, the numbers it measured)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as one:
+        nums, lines, worker = one.submit(timed_structured).result()
+    (out_dir / "conformance_structured.txt").write_text(
+        "\n".join(lines) + "\n")
+    launches = merge_counts(counts(), worker)
+    nums["phase_s"] = time.perf_counter() - t_phase
+    say(f"[11] launches over the structured and banded phase: {launches} "
+        f"(no hand kernel on these paths); phase {nums['phase_s']:.1f} s "
+        f"(a-c {nums['abc_s']:.1f} s, d {nums['cells_s']:.1f} s)")
+    require(not any(launches.values()),
+            "[11] the structured or banded path launched a batched kernel")
+    (out_dir / "structured_phase.json").write_text(
+        json.dumps(nums, indent=1, default=float))
+    return launches, nums
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -977,7 +1059,7 @@ def main():
 
 
 def run(torch, oracles):
-    """Phases 1-10 and the result lines (``main`` after its checks)."""
+    """Phases 1-11 and the result lines (``main`` after its checks)."""
     from osqp_tpu_torch import constants as C
     from osqp_tpu_torch.batch import BatchedSolver
     from osqp_tpu_torch.linalg import precision_scope
@@ -1478,6 +1560,7 @@ def run(torch, oracles):
                             ref4=(solver, cold), ref7=f_out, idx=idx)
     phase9, _ = phase9_model(torch, reset_counts, counts, out_dir, oracles)
     phase10, _ = phase10_sparse(torch, reset_counts, counts, out_dir, oracles)
+    phase11, _ = phase11_structured(torch, reset_counts, counts, out_dir)
 
     ir = iter_rows[iter_variant]
     iter_extra = {f"{v}_{key}": iter_rows[v][k2] for v in ("f32", "lowp")
@@ -1509,7 +1592,8 @@ def run(torch, oracles):
                  phase8_launches={k: v[r["name"]]
                                   for k, v in phase8.items()},
                  phase9_launches=phase9[r["name"]],
-                 phase10_launches=phase10[r["name"]])
+                 phase10_launches=phase10[r["name"]],
+                 phase11_launches=phase11[r["name"]])
     say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,12 @@ slice by slice and never imports jax. Ported so far:
   input, routed to a dense Cholesky at small sizes or to a
   Jacobi-preconditioned CG on CSR (``sparse_ops.py``) or ELL
   (``padded_sparse.py``) operators;
+* the structured engine, ``BlockTridiagSolver`` (``structured.py``): MPC
+  problems whose reduced KKT is block-tridiagonal, factored by block
+  cyclic reduction (or the block-Cholesky recurrence), shared by a lane
+  batch; and the banded direct backend over it, ``BandedModel``
+  (``band.py``, RCM reordering), which ``SparseModel`` selects with
+  ``linsys_solver="mkl pardiso"``;
 * the batched engines of ``BatchedSolver`` — the shared-structure engine
   (``kkt_mode="shared"``, with its prepared workspace, rollouts and mixed
   precision) and the per-lane engine (``kkt_mode`` "inverse", "chol",
@@ -26,6 +32,7 @@ Every entry point runs on the GPU unless the caller passes
 """
 
 from . import constants, problems
+from .band import BandedModel
 from .batch import BatchedSolver, pad_problems, solve_batch
 from .constants import (
     OSQP_INFTY,
@@ -39,6 +46,7 @@ from .interface import Model, __version__, version
 from .modeling import Problem
 from .settings import Settings
 from .sparse_core import SparseModel
+from .structured import BlockTridiagSolver
 from .types import DynParams, Info, QPData, Results, ScalingData, SolveOutput
 
 #: osqp-python-style alias: ``prob = osqp.OSQP(); prob.setup(...)``
@@ -49,6 +57,8 @@ __all__ = [
     "OSQP",
     "Problem",
     "SparseModel",
+    "BlockTridiagSolver",
+    "BandedModel",
     "BatchedSolver",
     "pad_problems",
     "solve_batch",

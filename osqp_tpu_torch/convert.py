@@ -183,16 +183,16 @@ def sparse_model_to_torch(jax_model, device):
     ``SparseModel`` on ``device`` in the same dtype, with the same
     settings, routing, canonical CSC matrices, operators (or densified
     matrices on the direct route), q, l, u and warm starts, so that both
-    packages solve from one state. A model of the banded backend or
-    sharded over a mesh has no counterpart in the port and raises."""
+    packages solve from one state; a model of the banded backend carries
+    its :class:`~osqp_tpu_torch.band.BandedModel` across
+    (:func:`banded_model_to_torch`). A model sharded over a mesh has no
+    counterpart in the port and raises."""
     from .settings import Settings
     from .sparse_core import SparseModel
 
-    if getattr(jax_model, "_band", None) is not None or \
-            getattr(jax_model, "_mesh", None) is not None:
+    if getattr(jax_model, "_mesh", None) is not None:
         raise NotImplementedError(
-            "the banded backend and mesh sharding are not ported (ROADMAP "
-            "queue 1 items 9 and 11)")
+            "mesh sharding is not ported (ROADMAP queue 1 item 11)")
     dtype = np.dtype(jax_model._dtype)
     model = SparseModel(device=device)
     settings = jax_model.settings.asdict()
@@ -217,5 +217,80 @@ def sparse_model_to_torch(jax_model, device):
     model._q, model._l, model._u, model._x0, model._y0 = (
         _tensor(getattr(jax_model, k), device, dtype)
         for k in ("_q", "_l", "_u", "_x0", "_y0"))
+    model._band = (None if jax_model._band is None
+                   else banded_model_to_torch(jax_model._band, device))
+    model._is_setup = True
+    return model
+
+
+def banded_data_to_torch(data, device, dtype):
+    """``osqp_tpu.structured.BandedData`` → the port's, with its index
+    tables."""
+    from .structured import banded_data
+    return banded_data(*(np.asarray(getattr(data, f))
+                         for f in ("Pd", "Pe", "arow", "br")),
+                       device, torch_dtype(dtype))
+
+
+def tfactor_to_torch(factor, kkt, device, dtype):
+    """``osqp_tpu.structured.TFactor`` → the port's: the cyclic-reduction
+    levels and top inverse (``kkt="cr"``) or the recurrence's (L, F)
+    (``kkt="scan"``), its rho vector and rho."""
+    from .structured import TFactor
+
+    def t(v):
+        return _tensor(v, device, dtype)
+
+    if kkt == "cr":
+        levels, top_inv = factor.fac
+        fac = ([tuple(t(v) for v in lev) for lev in levels], t(top_inv))
+    else:
+        fac = tuple(t(v) for v in factor.fac)
+    return TFactor(fac=fac, rho_vec=t(factor.rho_vec),
+                   rho_bar=t(factor.rho_bar))
+
+
+def structured_to_torch(jax_solver, device):
+    """A set-up ``osqp_tpu.structured.BlockTridiagSolver`` → a port
+    ``BlockTridiagSolver`` on ``device`` in the same dtype, with the same
+    settings, banded data, scaling and carried factor, so that both
+    packages solve from one factor state."""
+    from .settings import Settings
+    from .structured import BandedScaling, BlockTridiagSolver
+
+    dtype = np.dtype(jax_solver._dtype)
+    st = BlockTridiagSolver(device=device)
+    settings = jax_solver.settings.asdict()
+    settings["dtype"] = dtype
+    st.settings = Settings(**settings)
+    st._kkt = jax_solver._kkt
+    st._data = banded_data_to_torch(jax_solver._data, device, dtype)
+    st._scal = BandedScaling(*(_tensor(getattr(jax_solver._scal, f), device,
+                                       dtype)
+                               for f in BandedScaling._fields))
+    st.n, st.m, st.T, st.b = (jax_solver.n, jax_solver.m, jax_solver.T,
+                              jax_solver.b)
+    st._dtype = dtype
+    st._factor = (None if jax_solver._factor is None else tfactor_to_torch(
+        jax_solver._factor, st._kkt, device, dtype))
+    st._is_setup = True
+    return st
+
+
+def banded_model_to_torch(jax_model, device):
+    """A set-up ``osqp_tpu.band.BandedModel`` → a port ``BandedModel`` on
+    ``device``: its RCM order, padding, structured solver
+    (:func:`structured_to_torch`), vectors and warm starts."""
+    from .band import BandedModel
+
+    model = BandedModel(device=device)
+    model._st = structured_to_torch(jax_model._st, device)
+    model.settings = model._st.settings
+    for k in ("_perm", "_inv", "_q", "_l", "_u", "_x0", "_y0"):
+        v = getattr(jax_model, k)
+        setattr(model, k, None if v is None else np.array(v))
+    model.n, model.m = jax_model.n, jax_model.m
+    model._n_pad = jax_model._n_pad
+    model.block, model.bandwidth = jax_model.block, jax_model.bandwidth
     model._is_setup = True
     return model

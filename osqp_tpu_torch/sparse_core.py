@@ -11,22 +11,28 @@ GPU) or ELL (:mod:`osqp_tpu_torch.padded_sparse`), with a Jacobi
 preconditioner and O(nnz) work per CG step. No hand kernel runs on either
 route.
 
+``linsys_solver="mkl pardiso"`` selects the second direct backend, the
+RCM-banded block-tridiagonal factorization of :mod:`osqp_tpu_torch.band`;
+a problem without band structure falls back to the default routing with
+a warning, as in the JAX package.
+
 A model runs on the GPU unless the caller passes ``device="cpu"``, and
 raises when no GPU is present. A problem runs on the device the caller
 chose: the JAX package's extreme-sparsity host route (a placement measured
-on a TPU) is not ported. ``mesh`` (row sharding) and
-``linsys_solver="mkl pardiso"`` (the banded direct backend) are refused.
+on a TPU) is not ported. ``mesh`` (row sharding) is refused.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import scipy.sparse as _sp
 import torch
 
 from . import constants as C
+from .band import BandedModel
 from .core import (dyn_from_settings, init_factor, resolve_cg_cap,
                    scale_problem, solve_scaled, torch_dtype)
 from .linalg import precision_scope
@@ -216,7 +222,10 @@ class SparseModel:
     Jacobi-preconditioned CG on CSR or ELL operators for larger ones (or
     with ``linsys_solver="indirect"``). With ``polish=True`` the matrix-free
     mode polishes by CG on the reduced active-set system (densified and
-    factored below the dense bound).
+    factored below the dense bound). ``linsys_solver="mkl pardiso"``
+    delegates to the banded direct backend
+    (:class:`~osqp_tpu_torch.band.BandedModel`) where RCM finds a band;
+    its settings, updates and warm starts are forwarded to it.
 
     ``device``: "cuda" unless given; raises when CUDA is not available
     (pass ``device="cpu"`` to run on the CPU). ``mesh`` is refused."""
@@ -255,11 +264,7 @@ class SparseModel:
             raise ValueError("sparse_format must be 'auto', 'padded' or "
                              "'bcoo'")
         self.settings = Settings.from_kwargs(**settings)
-        if self.settings.linsys_solver == C.MKL_PARDISO_SOLVER:
-            raise NotImplementedError(
-                "linsys_solver='mkl pardiso' selects the banded direct "
-                "backend, which is not ported yet (ROADMAP queue 1 item 9, "
-                "band.py)")
+        want_banded = self.settings.linsys_solver == C.MKL_PARDISO_SOLVER
         # route off the coerced constant, so the "cg" alias and the int
         # constant select the matrix-free path as the string does
         explicit_indirect = (self.settings.linsys_solver
@@ -298,6 +303,17 @@ class SparseModel:
         self._dtype = dtype
         self._tdtype = torch_dtype(dtype)
         self._rebuild_ops()
+        # the second direct backend: the RCM-banded block-tridiagonal
+        # factorization, on this model's device; a problem with no band to
+        # exploit keeps the default routing, with a warning
+        self._band = None
+        if want_banded:
+            try:
+                self._band = self._banded(q, l, u)
+            except ValueError as e:
+                warnings.warn(f"banded direct backend unavailable ({e}); "
+                              "using the default direct/CG routing",
+                              stacklevel=2)
         l = np.asarray(l, float)
         u = np.asarray(u, float)
         if np.any(np.maximum(l, -C.OSQP_INFTY) > np.minimum(u, C.OSQP_INFTY)):
@@ -310,6 +326,15 @@ class SparseModel:
         self._sync()
         self._is_setup = True
         return self
+
+    def _banded(self, q, l, u):
+        """A :class:`~osqp_tpu_torch.band.BandedModel` of the canonical
+        matrices and these vectors, with this model's settings."""
+        return BandedModel(device=self.device).setup(
+            P=self._Pu_csc, q=np.asarray(q, float), A=self._A_csc,
+            l=np.asarray(l, float), u=np.asarray(u, float),
+            **{k: v for k, v in self.settings.asdict().items()
+               if k != "linsys_solver"})
 
     def _rebuild_ops(self):
         """(Re)build the device operators from the canonical CSC matrices
@@ -339,11 +364,15 @@ class SparseModel:
         takes effect in the next solve."""
         self._check()
         self.settings.update_inplace(**kwargs)
+        if self._band is not None:
+            self._band.update_settings(**kwargs)
 
     def warm_start(self, x=None, y=None):
         """Set unscaled warm starts (x and/or y; the omitted one is
         zeroed)."""
         self._check()
+        if self._band is not None:
+            self._band.warm_start(x=x, y=y)
         self._x0 = self._t(x if x is not None else np.zeros(self.n))
         self._y0 = self._t(y if y is not None else np.zeros(self.m))
 
@@ -389,6 +418,11 @@ class SparseModel:
             rebuild = True
         if rebuild:
             self._rebuild_ops()
+            if self._band is not None:
+                # value-only: the pattern, so the RCM order, is unchanged;
+                # the banded slabs are rebuilt and refactored
+                self._band = self._banded(self._band._q, self._band._l,
+                                          self._band._u)
         if q is not None:
             q = np.asarray(q, float)
             if q.shape[0] != self.n:
@@ -398,6 +432,9 @@ class SparseModel:
             self._l = self._t(l)
         if u is not None:
             self._u = self._t(u)
+        if self._band is not None and (q is not None or l is not None
+                                       or u is not None):
+            self._band.update(q=q, l=l, u=u)
 
     def _run(self, dyn, x0, y0, polish: bool):
         """One solve from the unscaled start on the routed path."""
@@ -418,6 +455,8 @@ class SparseModel:
         """Run the ADMM solve (and the polish when asked); package Results
         with the reference's NaN and certificate conventions."""
         self._check()
+        if self._band is not None:
+            return self._band.solve()
         t0 = time.perf_counter()
         s = self.settings
         dyn = resolve_cg_cap(dyn_from_settings(s, self._dtype), s, self.n)

@@ -6,7 +6,8 @@ artifact ``conformance.json``::
 
     python3 -m osqp_tpu_torch.tools.conformance [--device cpu|cuda]
         [--kkt-modes inverse,shared,fused]
-        [--columns torch-direct,torch-cg,torch-sparse,torch-sparse-mf]
+        [--columns torch-direct,torch-cg,torch-sparse,torch-sparse-mf,
+                   torch-structured,torch-banded]
         [--sizes S[,M,L]] [--workers N]
 
 Columns: ``BatchedSolver`` of the port (one lane) in each of
@@ -17,7 +18,11 @@ torch-cg), held to its ``jax-direct`` and ``jax-cg`` rows; and
 (``torch-sparse``: the dense direct factor at these sizes, the
 matrix-free path past its bound) or the matrix-free CG path
 (``torch-sparse-mf``, ``linsys_solver="indirect"``), held to the
-``sparse`` and ``sparse-mf`` rows. Cells, from the
+``sparse`` and ``sparse-mf`` rows; ``BlockTridiagSolver`` of the port on
+the control family (``torch-structured``, block nx + nu, no polish, as
+the script's :171-184 and :421-434) and ``BandedModel`` on the chain
+family (``torch-banded``, polish on, its :186-197 and :355-366), held to
+the ``structured`` and ``banded`` rows. Cells, from the
 port's copy of the problem families: ``solved`` (each family at each size
 of ``SIZE_GRID``), and at size S ``primal_inf``, ``dual_inf`` and
 ``non_convex``, built by copies of the script's constructors (its
@@ -68,6 +73,10 @@ MODEL_COLUMNS = {"torch-direct": ("direct", "jax-direct"),
 #: the SparseModel columns: their linsys_solver and the artifact's engine
 SPARSE_COLUMNS = {"torch-sparse": ("qdldl", "sparse"),
                   "torch-sparse-mf": ("indirect", "sparse-mf")}
+#: the structured-engine columns: their one family and the artifact's
+#: engine
+BANDED_COLUMNS = {"torch-structured": ("control_qp", "structured"),
+                  "torch-banded": ("chain_qp", "banded")}
 SINGLE_COLUMNS = {**MODEL_COLUMNS, **SPARSE_COLUMNS}
 #: the sweep's float64 gates against the interior-point oracle
 OBJ_RTOL, X_ATOL = 1e-5, 5e-4
@@ -217,15 +226,18 @@ def oracle_gates(P, q, A, l, u, x, family, oracle=None):
         x_err < X_ATOL or family == "degenerate_qp"))
 
 
-def _judge(row, kind, data, eps, x, y, z, prim_cert, dual_cert):
-    """The gates beyond the status: a Solved cell polished and within eps
-    in float64, an infeasible cell's certificate valid. Returns ok."""
+def _judge(row, kind, data, eps, x, y, z, prim_cert, dual_cert,
+           polished=True):
+    """The gates beyond the status: a Solved cell polished (where the
+    column polishes) and within eps in float64, an infeasible cell's
+    certificate valid. Returns ok."""
     P, q, A, l, u = data
     ok = row["status"] == row["expected"]
     if kind == "solved":
         row["residual_ok"] = residual_ok(P, q, A, l, u, x, y, z, eps)
         row["x"] = x
-        return ok and row["status_polish"] == 1 and row["residual_ok"]
+        return (ok and (row["status_polish"] == 1 or not polished)
+                and row["residual_ok"])
     if kind == "primal_inf":
         row["cert_ok"] = bool(validate_farkas(A, l, u, prim_cert))
         return ok and row["cert_ok"]
@@ -297,6 +309,87 @@ def check_model_cell(kind, family, size, column, device, expected,
     return row
 
 
+def check_banded_cell(kind, size, column, device, expected, state=None):
+    """Solve one cell of a structured-engine column (``column`` a key of
+    ``BANDED_COLUMNS``) in float64 and judge it as
+    :func:`check_model_cell` does. ``torch-structured`` runs
+    ``BlockTridiagSolver`` (block nx + nu, not polished; its residual
+    check takes the solver's z), ``torch-banded`` runs ``BandedModel``
+    (polished; z = clip(Ax, l, u)). An update cell re-solves warm from the
+    solved cell of ``state`` (else from a first solve of its own): by
+    ``x0``/``y0`` and the carried factor, or by ``warm_start(x, y)``.
+    Returns a row dict with ``ok``."""
+    from ..band import BandedModel
+    from ..structured import BlockTridiagSolver
+
+    family = BANDED_COLUMNS[column][0]
+    P, q, A, l, u = cell("solved" if kind == "update" else kind, family,
+                         size)
+    eps = FAMILY_EPS.get(family, EPS)
+    kw = dict(verbose=False, eps_abs=eps, eps_rel=eps, max_iter=MAX_ITER,
+              dtype=np.float64)
+    row = dict(kind=kind, family=family, size=size, column=column,
+               expected=expected, iters=0)
+    structured = column == "torch-structured"
+    t0 = time.perf_counter()
+
+    def solve(engine, q_, l_, u_, warm=None):
+        """(status, iters, status_polish, x, y, z, prim, dual) as numpy."""
+        if structured:
+            w = {} if warm is None else dict(x0=warm[0], y0=warm[1])
+            out = engine.solve(q_, l_, u_, **w)
+            x, y, z, pc, dc = (out[k][0].double().cpu().numpy() for k in (
+                "x", "y", "z", "prim_cert", "dual_cert"))
+            return (C.STATUS_MAP[int(out["status"][0])], int(out["iter"][0]),
+                    int(out["status_polish"][0]), x, y, z, pc, dc)
+        if warm is not None:
+            engine.update(q=q_, l=l_, u=u_)
+            engine.warm_start(x=warm[0], y=warm[1])
+        r = engine.solve()
+        return (r.info.status, r.info.iter, r.info.status_polish, r.x, r.y,
+                np.clip(A @ r.x, l_, u_), r.prim_inf_cert, r.dual_inf_cert)
+
+    if kind == "update" and state:
+        engine, res = state.pop("engine"), state.pop("res")
+        row["first_solve_shared"] = True
+    else:
+        if structured:
+            kwc = dict(SIZE_GRID[family])[size]
+            engine = BlockTridiagSolver(device=device).setup(
+                P=sp.csc_matrix(P), A=sp.csc_matrix(A),
+                block=kwc["nx"] + kwc["nu"], **kw)
+        else:
+            engine = BandedModel(device=device).setup(
+                P=sp.csc_matrix(P), q=q, A=sp.csc_matrix(A), l=l, u=u,
+                polish=True, **kw)
+        res = solve(engine, q, l, u)
+        if kind == "solved" and state is not None:
+            state.update(engine=engine, res=res)
+    if kind == "update":
+        q, l, u = update_data(q, l, u)
+        res = solve(engine, q, l, u, warm=res[3:5])
+    status, iters, spol, x, y, z, pc, dc = res
+    row.update(status=status, iters=iters, status_polish=spol,
+               seconds=time.perf_counter() - t0)
+    ok = _judge(row, kind, (P, q, A, l, u), eps, x, y, z, pc, dc,
+                polished=not structured)
+    if kind == "update":
+        row["obj_err"], _, _ = oracle_gates(P, q, A, l, u, x, family)
+        ok = ok and not row["obj_err"] >= OBJ_RTOL
+    row["ok"] = bool(ok)
+    return row
+
+
+def banded_cells(column, sizes=("S",)):
+    """The cells of a structured-engine column: its family's solved cell
+    at each of ``sizes``, the status cells and the update cell at S."""
+    family = BANDED_COLUMNS[column][0]
+    out = [("solved", family, s) for s in sizes]
+    if "S" in sizes:
+        out += [(k, family, "S") for k in KINDS[1:] + ("update",)]
+    return out
+
+
 def check_cell(kind, family, size, kkt_mode, device, expected):
     """Solve one cell and judge it. Returns a row dict with ``ok``."""
     P, q, A, l, u = cell(kind, family, size)
@@ -321,6 +414,11 @@ def check_cells(todo, column, device, expected):
     order; an update cell continues from the solved cell of its family
     when that came first. Returns the rows."""
     state = {}
+    if column in BANDED_COLUMNS:
+        return [check_banded_cell(kind, size, column, device,
+                                  expected[(kind, family, size)],
+                                  state=state)
+                for kind, family, size in todo]
     return [check_model_cell(kind, family, size, column, device,
                              expected[(kind, family, size)], state=state)
             for kind, family, size in todo]
@@ -352,10 +450,13 @@ def column_tasks(columns, device, sizes=("S",), artifact=ARTIFACT):
     the artifact first (so that a pool starts its longest tasks first)."""
     tasks = []
     for column in columns:
-        engine = SINGLE_COLUMNS[column][1]
+        engine = {**SINGLE_COLUMNS, **BANDED_COLUMNS}[column][1]
         expected = artifact_statuses(artifact, engine)
         iters = artifact_statuses(artifact, engine, "iters")
-        for kind, family, size in cells(sizes):
+        todo_cells = (cells(sizes) if column in SINGLE_COLUMNS else
+                      [c for c in banded_cells(column, sizes)
+                       if c[0] != "update"])
+        for kind, family, size in todo_cells:
             todo = [(kind, family, size)]
             if kind == "solved" and size == "S":
                 todo.append(("update", family, "S"))
@@ -424,7 +525,8 @@ def main(argv=None):
     ap.add_argument("--kkt-modes", default="inverse")
     ap.add_argument("--columns", default="",
                     help="single-problem columns: torch-direct,torch-cg,"
-                    "torch-sparse,torch-sparse-mf")
+                    "torch-sparse,torch-sparse-mf,torch-structured,"
+                    "torch-banded")
     ap.add_argument("--sizes", default="S")
     ap.add_argument("--workers", type=int, default=0,
                     help="spread the single-problem columns' cells over "

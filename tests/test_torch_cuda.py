@@ -22,7 +22,12 @@ updates and ``status_polish`` identical, x, y and certificates within
 1e-6. The sparse operators (CSR by cuSPARSE, ELL by gathers) on the card
 against the CPU within rtol 1e-12; ``SparseModel`` and ``Problem`` on the
 card against the CPU in float64: statuses equal, x within 1e-6 (and the
-dense-routed SparseModel and ``Problem`` with iterations equal too).
+dense-routed SparseModel and ``Problem`` with iterations equal too). The
+structured engine's card forms (Aᵀw and the normal blocks by the per-stage
+row table, cyclic reduction) against their CPU forms within 1e-12
+relative in float64; ``BlockTridiagSolver`` and ``BandedModel`` on the
+card against the CPU in float64: statuses, iterations and
+``status_polish`` equal, x within 1e-6.
 """
 
 from unittest import mock
@@ -821,3 +826,94 @@ def test_problem_on_card_matches_cpu_f64(dev):
         p.add_constraint({0: 1.0, 5: 1.0}, ub=0.2)
     _assert_model_match(*(p.optimize() for p in pair))
     assert pair[0].raw_solver() is not inner
+
+
+# ---------------------------------------------------------------------------
+# The structured engine and the banded backend on the card (no hand
+# kernel): the card's atomic-free stage sums and cyclic reduction against
+# their CPU forms, and whole solves against the CPU in float64
+# ---------------------------------------------------------------------------
+
+def _banded_pair(dev, T=37, nx=6, nu=3, seed=0):
+    import scipy.sparse as sp
+    from osqp_tpu_torch import structured as TS
+    from osqp_tpu_torch.problems import control_qp
+    P, q, A, l, u = control_qp(nx=nx, nu=nu, T=T, seed=seed)
+    host = TS.banded_from_scipy(sp.csc_matrix(P), sp.csc_matrix(A), nx + nu)
+    return [TS.banded_data(*host[:4], d, torch.float64)
+            for d in (dev, "cpu")], (P, q, A, l, u, nx + nu)
+
+
+def test_card_stage_sums_and_cr_solve_match_cpu(dev):
+    """Aᵀw and the normal blocks by the row-table product on the card
+    against ``index_add_`` in row order on the CPU; cr_factor / cr_solve
+    on the card against the CPU; float64, relative 1e-12."""
+    from osqp_tpu_torch import structured as TS
+    (gd, cd), (P, q, A, l, u, b) = _banded_pair(dev)
+    rng = np.random.RandomState(3)
+    m = A.shape[0]
+    w = rng.randn(5, m)
+    rho = np.exp(rng.randn(m))
+
+    def close(g, c):
+        g, c = g.cpu().numpy(), c.numpy()
+        assert np.max(np.abs(g - c)) <= 1e-12 * max(1.0, np.max(np.abs(c)))
+
+    close(TS._aty(gd, torch.tensor(w, device=dev)),
+          TS._aty(cd, torch.tensor(w)))
+    sig = torch.tensor(1e-6, dtype=torch.float64)
+    blocks = [TS._banded_normal_blocks(d, torch.tensor(rho, device=d.Pd.device),
+                                       sig) for d in (gd, cd)]
+    for g, c in zip(*blocks):
+        close(g, c)
+    facs = [TS.cr_factor(*bl) for bl in blocks]
+    r = rng.randn(5, A.shape[1] // b, b)
+    close(TS.cr_solve(facs[0], torch.tensor(r, device=dev)),
+          TS.cr_solve(facs[1], torch.tensor(r)))
+
+
+@pytest.mark.parametrize("kkt", ["cr", "scan"])
+def test_structured_solver_on_card_matches_cpu_f64(dev, kkt):
+    """BlockTridiagSolver on the card and on the CPU: 4 lanes, a cold
+    solve and a warm re-solve, then polish; statuses and iterations equal,
+    x within 1e-6."""
+    import scipy.sparse as sp
+    from osqp_tpu_torch.structured import BlockTridiagSolver
+    _, (P, q, A, l, u, b) = _banded_pair(dev, T=20)
+    rng = np.random.RandomState(0)
+    qs = q[None] + 0.1 * rng.randn(4, q.size)
+    ls, us = np.tile(l, (4, 1)), np.tile(u, (4, 1))
+    for polish in (False, True):
+        kw = dict(eps_abs=1e-6, eps_rel=1e-6, verbose=False,
+                  dtype=np.float64, kkt_solver=kkt, polish=polish)
+        gpu, cpu = (BlockTridiagSolver(device=d).setup(
+            P=sp.csc_matrix(P), A=sp.csc_matrix(A), block=b, **kw)
+            for d in (dev, "cpu"))
+        og, oc = gpu.solve(qs, ls, us), cpu.solve(qs, ls, us)
+        for k in ("status", "iter", "status_polish"):
+            assert torch.equal(og[k].cpu(), oc[k]), k
+        np.testing.assert_allclose(og["x"].cpu().numpy(), oc["x"].numpy(),
+                                   rtol=0, atol=1e-6)
+        og = gpu.solve(1.1 * qs, ls, us, x0=og["x"], y0=og["y"])
+        oc = cpu.solve(1.1 * qs, ls, us, x0=oc["x"], y0=oc["y"])
+        assert torch.equal(og["status"].cpu(), oc["status"])
+        np.testing.assert_allclose(og["x"].cpu().numpy(), oc["x"].numpy(),
+                                   rtol=0, atol=1e-6)
+
+
+def test_banded_model_on_card_matches_cpu_f64(dev):
+    """BandedModel on a shuffled chain, on the card and on the CPU."""
+    import scipy.sparse as sp
+    from osqp_tpu_torch.band import BandedModel
+    from osqp_tpu_torch.problems import chain_qp
+    P, q, A, l, u = chain_qp(n=300, bw=8, seed=1)
+    kw = dict(eps_abs=1e-6, eps_rel=1e-6, verbose=False, polish=True,
+              dtype=np.float64)
+    gpu, cpu = (BandedModel(device=d).setup(
+        P=sp.csc_matrix(P), q=q, A=sp.csc_matrix(A), l=l, u=u, **kw)
+        for d in (dev, "cpu"))
+    assert gpu._st._data.Pd.is_cuda
+    rg, rc = gpu.solve(), cpu.solve()
+    assert (rg.info.status, rg.info.iter, rg.info.status_polish) == (
+        rc.info.status, rc.info.iter, rc.info.status_polish)
+    np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-6)

@@ -8,7 +8,7 @@ on each solve equal status, iterations, rho updates and ``status_polish``,
 x, y, the objective and the certificates within rtol 1e-7, atol 1e-9 in
 float64 (``RTOL``/``ATOL``; a float32 case states its own). The original
 test's own assertions then run on the port's result. The port's
-refusals (mesh, the banded backend, a missing GPU) and its time-limited
+refusals (mesh, a missing GPU) and its time-limited
 driver have cases of their own.
 """
 
@@ -360,9 +360,10 @@ def test_refusals_name_their_roadmap_items():
     P, q, A, l, u = make_sparse_problem(n=16, m=24)
     with pytest.raises(NotImplementedError, match="queue 1 item 11"):
         TSC.SparseModel(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        TSC.SparseModel(device="cpu").setup(
-            P=P, q=q, A=A, l=l, u=u, linsys_solver="mkl pardiso")
+    # the banded backend is ported: "mkl pardiso" routes to it
+    assert TSC.SparseModel(device="cpu").setup(
+        P=P, q=q, A=A, l=l, u=u, linsys_solver="mkl pardiso",
+        verbose=False)._band is not None
     with pytest.raises(ValueError, match="sparse_format"):
         TSC.SparseModel(device="cpu").setup(P=P, q=q, A=A, l=l, u=u,
                                             sparse_format="csr")
