@@ -120,20 +120,44 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    torch-structured and torch-banded conformance columns on the card,
    each status equal to conformance.json's ``structured``/``banded`` row;
    (e) it checks that the phase launched none of the three kernels;
-12. prints one JSON line of the three kernels (launch counts of their own
-   paths and of phases 8, 9, 10 and 11, agreement with the twins, times,
-   and the least time the card could take for the same work), the
+12. drives the differentiable layers and ``ScenarioQP``, whose forwards
+   run the shared-structure engine and so the leg kernel, in a fresh
+   spawned process (``osqp_tpu_torch/tools/learned_mpc.py`` and
+   ``tools/scenario_qp.py``): (a) ``make_batched_qp_layer`` on the bench
+   workload (B=4096, n=128, m=256, float32, eps 1e-3, seed 0): its
+   forward's statuses, iterations and leg launches equal to
+   ``BatchedSolver(kkt_mode="shared").solve`` on the same batch; forward
+   and backward ms and the backward's peak device memory; 5 Adam steps of
+   the learned-MPC parametrization (ms a step, QP-gradients a second); the
+   float32 backward on 8 Solved lanes against float64 on the CPU from the
+   same x, y, and the lanes with non-finite float32 gradients; the same
+   batch in float64, its backward within 1e-8 relative of the CPU's
+   recomputation; (c) ``ScenarioQP`` at S=4096, k=16, n=128, m=256,
+   float32 (sub-solve eps 1e-4, consensus eps 1e-3, gamma 2, max_outer
+   300) through the fused and the host loop: outer iterations, ms an
+   outer iteration, residuals, leg launches; every sub-solve of the last
+   step Solved, the loops within one outer iteration and their w within
+   1e-3 of each other; the 4-scenario test problem in float64 against the
+   monolithic QP through the port's ``Model`` on the card (1e-3); then one
+   training step of (a) traced for the device's idle share in its forward
+   and backward spans; (b) ``examples/learned_mpc.py``'s loop (B=32, n=8,
+   m=12, float64, eps 1e-8, 150 Adam steps), the final loss below 1/50 of
+   the first; it checks that the phase launched the leg kernel;
+13. prints one JSON line of the three kernels (launch counts of their own
+   paths and of phases 8, 9, 10, 11 and 12, agreement with the twins,
+   times, and the least time the card could take for the same work), the
    nvidia-smi line, and last the device line ``{"ok": true, "device":
    {...}}``.
 
-Each path (4, 6, 7, each of phase 8's, phases 9, 10 and 11) runs with
+Each path (4, 6, 7, each of phase 8's, phases 9, 10, 11 and 12) runs with
 every launch counter set to 0 just before it and read just after (a
 worker process reports the launches it made, added to its phase's). Any
 failed check raises, so the exit code is non-zero and no device line is
 printed. Without a GPU, or outside a checkout, it exits non-zero too. The
 compiler's register/shared-memory report, phase 8's, 9's, 10's and 11's
-per-cell conformance lines and phase 9's, 10's and 11's numbers
-(model_phase.json, sparse_phase.json, structured_phase.json) go to the
+per-cell conformance lines, phase 9's, 10's, 11's and 12's numbers
+(model_phase.json, sparse_phase.json, structured_phase.json,
+diff_phase.json) and phase 12's trace (diff_trace/trace.json) go to the
 output directory beside the run (``out_dir`` in ``run``).
 """
 
@@ -1045,6 +1069,58 @@ def phase11_structured(torch, reset_counts, counts, out_dir):
     return launches, nums
 
 
+def timed_diff(out_dir):
+    """Phase 12 in a worker process of its own. Returns (its numbers, the
+    three kernels' launches over it)."""
+    import torch
+    from osqp_tpu_torch.tools import learned_mpc as LM
+    from osqp_tpu_torch.tools import scenario_qp as SQ
+    kernels = kernel_wrappers()
+    before = {k: fn.launches for k, fn in kernels.items()}
+    nums = {}
+    t0 = time.perf_counter()
+    nums["layer"] = LM.layer_at_width(torch, "cuda", B_MAIN, N, M, 5, say,
+                                      require)
+    nums["layer"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nums["scenario"] = SQ.run(torch, "cuda", say=say, require=require)
+    nums["scenario"]["s"] = time.perf_counter() - t0
+    # the profiler trace last but one: after a trace this process's
+    # launches run slower, and (b) times nothing that the phase reports
+    nums["trace"] = LM.traced_step(torch, "cuda", B_MAIN, N, M,
+                                   str(Path(out_dir) / "diff_trace"), say)
+    t0 = time.perf_counter()
+    nums["example"] = LM.example_loop(torch, "cuda", 150, say, require)
+    nums["example"]["s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return nums, {k: fn.launches - before[k] for k, fn in kernels.items()}
+
+
+def phase12_diff(torch, reset_counts, counts, out_dir):
+    """Phase 12: the differentiable layers and ``ScenarioQP`` at the bench
+    width, in a fresh process. Returns (launches of the three kernels over
+    the phase, the numbers it measured)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as one:
+        nums, worker = one.submit(timed_diff, str(out_dir)).result()
+    launches = merge_counts(counts(), worker)
+    nums["phase_s"] = time.perf_counter() - t_phase
+    say(f"[12] launches over the differentiable-layer and scenario phase: "
+        f"{launches}; phase {nums['phase_s']:.1f} s (a "
+        f"{nums['layer']['s']:.1f} s, c {nums['scenario']['s']:.1f} s, b "
+        f"{nums['example']['s']:.1f} s)")
+    require(launches["admm_solve_shared"] > 0,
+            "[12] the layers and ScenarioQP never launched the leg kernel")
+    (out_dir / "diff_phase.json").write_text(
+        json.dumps(nums, indent=1, default=float))
+    return launches, nums
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1059,7 +1135,7 @@ def main():
 
 
 def run(torch, oracles):
-    """Phases 1-11 and the result lines (``main`` after its checks)."""
+    """Phases 1-12 and the result lines (``main`` after its checks)."""
     from osqp_tpu_torch import constants as C
     from osqp_tpu_torch.batch import BatchedSolver
     from osqp_tpu_torch.linalg import precision_scope
@@ -1561,6 +1637,7 @@ def run(torch, oracles):
     phase9, _ = phase9_model(torch, reset_counts, counts, out_dir, oracles)
     phase10, _ = phase10_sparse(torch, reset_counts, counts, out_dir, oracles)
     phase11, _ = phase11_structured(torch, reset_counts, counts, out_dir)
+    phase12, _ = phase12_diff(torch, reset_counts, counts, out_dir)
 
     ir = iter_rows[iter_variant]
     iter_extra = {f"{v}_{key}": iter_rows[v][k2] for v in ("f32", "lowp")
@@ -1593,7 +1670,8 @@ def run(torch, oracles):
                                   for k, v in phase8.items()},
                  phase9_launches=phase9[r["name"]],
                  phase10_launches=phase10[r["name"]],
-                 phase11_launches=phase11[r["name"]])
+                 phase11_launches=phase11[r["name"]],
+                 phase12_launches=phase12[r["name"]])
     say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {

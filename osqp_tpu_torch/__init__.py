@@ -25,13 +25,20 @@ slice by slice and never imports jax. Ported so far:
   precision) and the per-lane engine (``kkt_mode`` "inverse", "chol",
   "fused"), with polish, ``time_limit`` and ``profile`` in every mode —
   and their three kernels, hand-written in CUDA for Hopper (``csrc/``),
-  each with a plain PyTorch twin that runs on the CPU.
+  each with a plain PyTorch twin that runs on the CPU;
+* the differentiable layers (``diff.py``): ``make_qp_layer`` and
+  ``solve_qp`` over the single-problem engine, ``make_batched_qp_layer``
+  over the shared-structure engine, each a ``torch.autograd.Function``
+  whose backward is the masked-KKT adjoint;
+* ``parallel.ScenarioQP`` (``parallel/scenario.py``): consensus ADMM for
+  two-stage scenario QPs over the shared-structure engine, on one device;
+* ``utils.profiling``: ``torch.profiler`` traces and named spans.
 
 Every entry point runs on the GPU unless the caller passes
 ``device="cpu"``. Importing the package builds no kernel.
 """
 
-from . import constants, problems
+from . import constants, parallel, problems
 from .band import BandedModel
 from .batch import BatchedSolver, pad_problems, solve_batch
 from .constants import (
@@ -42,6 +49,7 @@ from .constants import (
     UPDATABLE_SETTINGS,
 )
 from .core import dyn_from_settings, solve, solve_scaled
+from .diff import make_batched_qp_layer, make_qp_layer, solve_qp
 from .interface import Model, __version__, version
 from .modeling import Problem
 from .settings import Settings
@@ -62,6 +70,10 @@ __all__ = [
     "BatchedSolver",
     "pad_problems",
     "solve_batch",
+    "solve_qp",
+    "make_qp_layer",
+    "make_batched_qp_layer",
+    "parallel",
     "problems",
     "Settings",
     "Info",

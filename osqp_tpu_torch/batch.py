@@ -34,7 +34,8 @@ import torch
 from . import constants as C
 from .batch_core import KKT_MODES, merge_polish
 from .batch_core import solve_batch as _per_lane_solve
-from .core import dyn_from_settings, scale_problem, torch_dtype
+from .core import (dyn_from_settings, resolve_device, scale_problem,
+                   torch_dtype)
 from .linalg import precision_scope
 from .polish import polish
 from .settings import Settings
@@ -144,11 +145,7 @@ class BatchedSolver:
             raise NotImplementedError(
                 "mesh (batch sharding across devices) is not ported yet "
                 "(ROADMAP queue 1 item 11)")
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {str(self.device)!r} requested but "
-                               f"CUDA is not available (pass device='cpu' "
-                               f"to run on the CPU)")
+        self.device = resolve_device(device)
         self.settings = settings or Settings()
         self.kkt_mode = kkt_mode
         self.profile = bool(profile)

@@ -5,6 +5,10 @@ arrays, anything ``numpy.asarray`` reads, and returns the port's
 counterpart as tensors on ``device`` in ``dtype``. With them both packages
 can run from one prepared workspace or one ``Model``'s state, or a JAX
 solve can hand its warm starts to the port.
+
+The differentiable layers (``diff.py``) carry no state beyond their
+settings, so ``Settings(**jax_settings.asdict())`` on both sides is their
+conversion; :func:`scenario_to_torch` does the same for a ``ScenarioQP``.
 """
 
 from __future__ import annotations
@@ -294,3 +298,21 @@ def banded_model_to_torch(jax_model, device):
     model.block, model.bandwidth = jax_model.block, jax_model.bandwidth
     model._is_setup = True
     return model
+
+
+def scenario_to_torch(jax_sq, device):
+    """An ``osqp_tpu.parallel.scenario.ScenarioQP`` → the port's on
+    ``device``: the same k, gamma, consensus tolerance, max_outer and
+    settings, with the dtype that the reference resolves (its x64 flag)
+    pinned, since the port's default dtype is torch's."""
+    from .parallel.scenario import ScenarioQP
+    from .settings import Settings
+
+    if getattr(jax_sq, "mesh", None) is not None:
+        raise NotImplementedError(
+            "mesh sharding is not ported (ROADMAP queue 1 item 11)")
+    fields = dict(jax_sq.settings.asdict(),
+                  dtype=np.dtype(jax_sq.settings.resolve_dtype()))
+    return ScenarioQP(k=jax_sq.k, gamma=jax_sq.gamma,
+                      eps_consensus=jax_sq.eps, max_outer=jax_sq.max_outer,
+                      settings=Settings(**fields), device=device)

@@ -39,6 +39,17 @@ def torch_dtype(dtype) -> torch.dtype:
             np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
 
 
+def resolve_device(device) -> torch.device:
+    """An entry point's device: "cuda" unless given; raises when CUDA is
+    requested but not available."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} requested but CUDA is not "
+                           f"available (pass device='cpu' to run on the "
+                           f"CPU)")
+    return dev
+
+
 def dyn_from_settings(settings, dtype) -> DynParams:
     """Build the parameter bundle from a Settings object.
 

@@ -22,7 +22,8 @@ import torch
 
 from . import constants as C
 from .core import (constraint_masks, dyn_from_settings, init_factor,
-                   resolve_cg_cap, scale_problem, solve_scaled, torch_dtype)
+                   resolve_cg_cap, resolve_device, scale_problem,
+                   solve_scaled, torch_dtype)
 from .linalg import chol_factor, precision_scope
 from .polish import polish
 from .settings import Settings
@@ -51,11 +52,7 @@ class Model:
     (pass ``device="cpu"`` to run on the CPU)."""
 
     def __init__(self, device=None):
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {str(self.device)!r} requested but "
-                               f"CUDA is not available (pass device='cpu' "
-                               f"to run on the CPU)")
+        self.device = resolve_device(device)
         self._is_setup = False
 
     def _sync(self):

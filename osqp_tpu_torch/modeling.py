@@ -33,11 +33,11 @@ import math
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
 import dataclasses
 
 from .constants import UPDATABLE_SETTINGS
+from .core import resolve_device
 from .interface import Model
 from .modcaches import ProblemModificationCache, WarmStartCache
 from .settings import Settings
@@ -78,11 +78,7 @@ class Problem:
     The other keyword arguments are the solver settings."""
 
     def __init__(self, device=None, **settings):
-        self._device = torch.device("cuda" if device is None else device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {str(self._device)!r} requested but "
-                               f"CUDA is not available (pass device='cpu' "
-                               f"to run on the CPU)")
+        self._device = resolve_device(device)
         self._settings = settings
         self.n = 0
         self._quad: Dict[tuple, float] = {}   # (i<=j) -> P_ij of 0.5 x'Px

@@ -34,7 +34,7 @@ import torch
 from . import constants as C
 from .band import BandedModel
 from .core import (dyn_from_settings, init_factor, resolve_cg_cap,
-                   scale_problem, solve_scaled, torch_dtype)
+                   resolve_device, scale_problem, solve_scaled, torch_dtype)
 from .linalg import precision_scope
 from .padded_sparse import (PaddedOp, padded_col_max_abs, padded_op_from_coo,
                             padded_row_max_abs, scale_padded_op)
@@ -235,11 +235,7 @@ class SparseModel:
             raise NotImplementedError(
                 "SparseModel(mesh=...) row sharding is not ported yet "
                 "(ROADMAP queue 1 item 11, parallel)")
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {str(self.device)!r} requested but "
-                               f"CUDA is not available (pass device='cpu' "
-                               f"to run on the CPU)")
+        self.device = resolve_device(device)
         self._is_setup = False
 
     def _sync(self):

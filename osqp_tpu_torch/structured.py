@@ -57,7 +57,7 @@ import scipy.sparse as _sp
 import torch
 
 from . import constants as C
-from .core import dyn_from_settings, torch_dtype
+from .core import dyn_from_settings, resolve_device, torch_dtype
 from .linalg import inf_norm, precision_scope, with_precision
 from .ops.shared_iter import split_bf16
 from .batch import _rho_value
@@ -848,11 +848,7 @@ class BlockTridiagSolver:
             raise NotImplementedError(
                 "BlockTridiagSolver(mesh=...) lane sharding is not ported "
                 "yet (ROADMAP queue 1 item 11)")
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {str(self.device)!r} requested but "
-                               f"CUDA is not available (pass device='cpu' "
-                               f"to run on the CPU)")
+        self.device = resolve_device(device)
         self._is_setup = False
 
     def setup(self, P=None, A=None, block: int = None,

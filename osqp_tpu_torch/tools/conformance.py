@@ -7,7 +7,7 @@ artifact ``conformance.json``::
     python3 -m osqp_tpu_torch.tools.conformance [--device cpu|cuda]
         [--kkt-modes inverse,shared,fused]
         [--columns torch-direct,torch-cg,torch-sparse,torch-sparse-mf,
-                   torch-structured,torch-banded]
+                   torch-structured,torch-banded,torch-scenario]
         [--sizes S[,M,L]] [--workers N]
 
 Columns: ``BatchedSolver`` of the port (one lane) in each of
@@ -22,7 +22,13 @@ matrix-free path past its bound) or the matrix-free CG path
 the control family (``torch-structured``, block nx + nu, no polish, as
 the script's :171-184 and :421-434) and ``BandedModel`` on the chain
 family (``torch-banded``, polish on, its :186-197 and :355-366), held to
-the ``structured`` and ``banded`` rows. Cells, from the
+the ``structured`` and ``banded`` rows; ``ScenarioQP`` of the port
+(``torch-scenario``: S=4 copies of each solved cell at sizes S and M,
+k = n, consensus eps 1e-6, sub-solve eps 1e-8, max_outer 200, float64, the
+script's :248-268), held to the ``scenario`` rows: status "Solved" when
+the consensus converged (or the family is ``degenerate_qp``, whose x* is
+not unique) and the first sub-solve is Solved, and the decision w gated
+against the oracle. Cells, from the
 port's copy of the problem families: ``solved`` (each family at each size
 of ``SIZE_GRID``), and at size S ``primal_inf``, ``dual_inf`` and
 ``non_convex``, built by copies of the script's constructors (its
@@ -57,6 +63,7 @@ import scipy.sparse as sp
 from .. import constants as C
 from ..batch import BatchedSolver
 from ..interface import Model
+from ..parallel.scenario import ScenarioQP
 from ..problems import FAMILIES, SIZE_GRID
 from ..settings import Settings
 from ..sparse_core import SparseModel
@@ -78,6 +85,11 @@ SPARSE_COLUMNS = {"torch-sparse": ("qdldl", "sparse"),
 BANDED_COLUMNS = {"torch-structured": ("control_qp", "structured"),
                   "torch-banded": ("chain_qp", "banded")}
 SINGLE_COLUMNS = {**MODEL_COLUMNS, **SPARSE_COLUMNS}
+#: the scenario column (the script's float64 settings for its "scenario"
+#: engine): scenarios, consensus eps, sub-solve eps, outer iterations
+SCENARIO_COLUMN = "torch-scenario"
+SCENARIO_S, SCENARIO_EPS_CONS, SCENARIO_EPS_SUB = 4, 1e-6, 1e-8
+SCENARIO_MAX_OUTER = 200
 #: the sweep's float64 gates against the interior-point oracle
 OBJ_RTOL, X_ATOL = 1e-5, 5e-4
 ARTIFACT = Path(__file__).resolve().parents[2] / "conformance.json"
@@ -409,11 +421,54 @@ def check_cell(kind, family, size, kkt_mode, device, expected):
     return row
 
 
+def scenario_cells(sizes=("S", "M")):
+    """The scenario column's cells: each family's solved cell at
+    ``sizes`` (the script runs the scenario engine at S and M)."""
+    return [("solved", f, s) for f in sorted(FAMILIES) for s in sizes]
+
+
+def check_scenario_cell(family, size, device, expected):
+    """Solve one cell through the port's ``ScenarioQP`` (S copies of the
+    problem, k = n, so the consensus decision must equal the QP's
+    solution) and judge it: status equal to ``expected`` and the oracle's
+    gates on w. The row's ``iters`` are the outer iterations."""
+    P, q, A, l, u = cell("solved", family, size)
+    n, S = P.shape[0], SCENARIO_S
+    t0 = time.perf_counter()
+    sq = ScenarioQP(k=n, gamma=1.0, eps_consensus=SCENARIO_EPS_CONS,
+                    max_outer=SCENARIO_MAX_OUTER,
+                    settings=Settings(verbose=False,
+                                      eps_abs=SCENARIO_EPS_SUB,
+                                      eps_rel=SCENARIO_EPS_SUB,
+                                      max_iter=MAX_ITER, dtype=np.float64),
+                    device=device)
+    res = sq.solve(P, np.tile(q, (S, 1)), A, np.tile(l, (S, 1)),
+                   np.tile(u, (S, 1)))
+    seconds = time.perf_counter() - t0
+    sub = int(res.statuses[0])
+    # consensus to 1e-6 is out of reach when x* is not unique: the
+    # degenerate family is judged on the objective, as the script does
+    conv = res.converged or family == "degenerate_qp"
+    status = ("Solved" if conv and sub == C.SOLVED else
+              f"consensus:{res.converged}/"
+              f"{C.STATUS_MAP.get(sub, f'status:{sub}')}")
+    obj_err, x_err, gates = oracle_gates(P, q, A, l, u, res.w, family)
+    return dict(column=SCENARIO_COLUMN, kind="solved", family=family,
+                size=size, status=status, expected=expected,
+                iters=res.outer_iters, seconds=seconds, x=res.w,
+                obj_err=obj_err, x_err=x_err,
+                ok=bool(status == expected and gates))
+
+
 def check_cells(todo, column, device, expected):
     """Check the cells ``todo`` ((kind, family, size) each) of one column in
     order; an update cell continues from the solved cell of its family
     when that came first. Returns the rows."""
     state = {}
+    if column == SCENARIO_COLUMN:
+        return [check_scenario_cell(family, size, device,
+                                    expected[(kind, family, size)])
+                for kind, family, size in todo]
     if column in BANDED_COLUMNS:
         return [check_banded_cell(kind, size, column, device,
                                   expected[(kind, family, size)],
@@ -444,21 +499,27 @@ def worker_pool(workers):
 
 
 def column_tasks(columns, device, sizes=("S",), artifact=ARTIFACT):
-    """The cells of the single-problem columns as arguments of
-    :func:`check_cells`: per family and column the S solved cell with its
-    update cell, every other cell alone; the tasks of most iterations in
+    """The cells of the single-problem, structured-engine and scenario
+    columns as arguments of :func:`check_cells`: per family and column the
+    S solved cell with its update cell (the columns that have one), every
+    other cell alone; the tasks of most iterations in
     the artifact first (so that a pool starts its longest tasks first)."""
     tasks = []
     for column in columns:
-        engine = {**SINGLE_COLUMNS, **BANDED_COLUMNS}[column][1]
+        engine = {**SINGLE_COLUMNS, **BANDED_COLUMNS,
+                  SCENARIO_COLUMN: (None, "scenario")}[column][1]
         expected = artifact_statuses(artifact, engine)
         iters = artifact_statuses(artifact, engine, "iters")
-        todo_cells = (cells(sizes) if column in SINGLE_COLUMNS else
-                      [c for c in banded_cells(column, sizes)
-                       if c[0] != "update"])
+        if column in SINGLE_COLUMNS:
+            todo_cells = cells(sizes)
+        elif column == SCENARIO_COLUMN:
+            todo_cells = scenario_cells([s for s in sizes if s != "L"])
+        else:
+            todo_cells = [c for c in banded_cells(column, sizes)
+                          if c[0] != "update"]
         for kind, family, size in todo_cells:
             todo = [(kind, family, size)]
-            if kind == "solved" and size == "S":
+            if kind == "solved" and size == "S" and column != SCENARIO_COLUMN:
                 todo.append(("update", family, "S"))
             cost = sum(iters[c] or 0 for c in todo)
             tasks.append((cost, (todo, column, device,
@@ -526,7 +587,7 @@ def main(argv=None):
     ap.add_argument("--columns", default="",
                     help="single-problem columns: torch-direct,torch-cg,"
                     "torch-sparse,torch-sparse-mf,torch-structured,"
-                    "torch-banded")
+                    "torch-banded,torch-scenario")
     ap.add_argument("--sizes", default="S")
     ap.add_argument("--workers", type=int, default=0,
                     help="spread the single-problem columns' cells over "

@@ -27,7 +27,10 @@ structured engine's card forms (Aᵀw and the normal blocks by the per-stage
 row table, cyclic reduction) against their CPU forms within 1e-12
 relative in float64; ``BlockTridiagSolver`` and ``BandedModel`` on the
 card against the CPU in float64: statuses, iterations and
-``status_polish`` equal, x within 1e-6.
+``status_polish`` equal, x within 1e-6. The differentiable layers on the
+card against the CPU in float64: x, y and every gradient within 1e-8 (the
+batched layer's forward launching the leg kernel); ``ScenarioQP`` (fused
+and host loops): outer iterations and statuses equal, w within 1e-8.
 """
 
 from unittest import mock
@@ -917,3 +920,84 @@ def test_banded_model_on_card_matches_cpu_f64(dev):
     assert (rg.info.status, rg.info.iter, rg.info.status_polish) == (
         rc.info.status, rc.info.iter, rc.info.status_polish)
     np.testing.assert_allclose(rg.x, rc.x, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The differentiable layers and ScenarioQP
+# ---------------------------------------------------------------------------
+
+def _layer_problem(B=5, n=6, m=9, seed=4):
+    rng = np.random.RandomState(seed)
+    M = rng.randn(n, n)
+    P = M @ M.T + 0.5 * np.eye(n)
+    A = rng.randn(m, n)
+    q = rng.randn(B, n)
+    l = np.tile(np.where(np.arange(m) >= m // 2, -5.0, -0.1), (B, 1))
+    u = np.tile(np.where(np.arange(m) >= m // 2, 5.0, 0.1), (B, 1))
+    l[:, 0] = u[:, 0] = 0.05
+    return P, A, q, l, u
+
+
+def _layer_grads(layer, args, wx, wy, device):
+    ts = [torch.tensor(a, dtype=torch.float64, device=device,
+                       requires_grad=True) for a in args]
+    x, y = layer(*ts)
+    loss = (torch.sum(torch.as_tensor(wx, device=device) * x)
+            + torch.sum(torch.as_tensor(wy, device=device) * y))
+    g = torch.autograd.grad(loss, ts)
+    return [v.detach().cpu().numpy() for v in (x, y, *g)]
+
+
+def test_batched_layer_on_card_matches_cpu_f64(dev):
+    """make_batched_qp_layer on the card (the leg kernel's forward) and on
+    the CPU, float64: x, y and every gradient within 1e-8; the forward
+    launches the leg kernel."""
+    from osqp_tpu_torch import diff as D
+    P, A, q, l, u = _layer_problem()
+    rng = np.random.RandomState(9)
+    wx, wy = rng.randn(*q.shape), rng.randn(*l.shape)
+    s = Settings(eps_abs=1e-10, eps_rel=1e-10, max_iter=20000,
+                 verbose=False, dtype=np.float64)
+    n0 = SK.admm_solve_shared.launches
+    gpu = _layer_grads(D.make_batched_qp_layer(s, device=dev),
+                       (P, A, q, l, u), wx, wy, dev)
+    assert SK.admm_solve_shared.launches > n0
+    cpu = _layer_grads(D.make_batched_qp_layer(s, device="cpu"),
+                       (P, A, q, l, u), wx, wy, "cpu")
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-8)
+
+
+def test_qp_layer_on_card_matches_cpu_f64(dev):
+    """make_qp_layer (the single-problem engine) on the card and on the
+    CPU, float64: x, y and every gradient within 1e-8."""
+    from osqp_tpu_torch import diff as D
+    P, A, q, l, u = _layer_problem()
+    rng = np.random.RandomState(5)
+    wx, wy = rng.randn(q.shape[1]), rng.randn(l.shape[1])
+    s = Settings(eps_abs=1e-10, eps_rel=1e-10, max_iter=20000,
+                 verbose=False, dtype=np.float64)
+    args = (P, q[0], A, l[0], u[0])
+    gpu = _layer_grads(D.make_qp_layer(s, device=dev), args, wx, wy, dev)
+    cpu = _layer_grads(D.make_qp_layer(s, device="cpu"), args, wx, wy,
+                       "cpu")
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_scenario_qp_on_card_matches_cpu_f64(dev, fused):
+    """ScenarioQP on the card and on the CPU, float64: outer iterations
+    and statuses equal, w within 1e-8."""
+    from osqp_tpu_torch.parallel import ScenarioQP
+    from osqp_tpu_torch.tools.scenario_qp import make_scenario_problem
+    data = make_scenario_problem(S=8, seed=5)
+    s = Settings(verbose=False, eps_abs=1e-7, eps_rel=1e-7,
+                 adaptive_rho=False, dtype=np.float64)
+    rg, rc = (ScenarioQP(k=3, gamma=2.0, eps_consensus=1e-5, max_outer=300,
+                         settings=s, device=d).solve(*data, fused=fused)
+              for d in (dev, "cpu"))
+    assert rg.converged and rc.converged
+    assert rg.outer_iters == rc.outer_iters
+    np.testing.assert_array_equal(rg.statuses, rc.statuses)
+    np.testing.assert_allclose(rg.w, rc.w, rtol=0, atol=1e-8)
