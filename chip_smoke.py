@@ -143,22 +143,43 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and backward spans; (b) ``examples/learned_mpc.py``'s loop (B=32, n=8,
    m=12, float64, eps 1e-8, 150 Adam steps), the final loss below 1/50 of
    the first; it checks that the phase launched the leg kernel;
-13. prints one JSON line of the three kernels (launch counts of their own
-   paths and of phases 8, 9, 10, 11 and 12, agreement with the twins,
+13. serves the bench workload through the port's artifacts
+   (``osqp_tpu_torch/serve.py``, ``native.py``; ``tools/serving.py``):
+   (a) the phase 4 batch (B=4096, n=128, m=256, float32, eps 1e-3, seed 0)
+   prepared and written by ``export_prepared`` to ``prepared.npz`` in the
+   output directory; the main process runs a stream of 20 requests
+   (q_{k+1} = q_k + 0.05·|q_0|·N(0, 1), l and u fixed, each warm-started
+   from the previous x and y) through the live ``solve_prepared`` from
+   the exported state, and a fresh spawned process, which builds no
+   ``BatchedSolver`` and has not imported jax, loads the file twice and
+   answers the same stream by ``solve_device`` and by ``solve``:
+   statuses and iterations equal on all 4096 lanes of every request
+   across the three, x and y within 1e-5, every lane Solved, 64 lanes of
+   the last request in float64 numpy, the leg kernel launched on every
+   request; the artifact's bytes, export and load ms, ms a request of
+   each (median and highest), the three in turns, QP/s; (b)
+   ``export_solver`` at the same width: ``SolverServer.solve`` on the
+   batch and on (2P, A + 0.01), statuses and iterations equal to
+   ``BatchedSolver(kkt_mode="shared").solve``; (c) ``NativeModel`` built
+   from ``osqp_tpu_torch/csrc/native/`` on the host CPU, the
+   basic QP (x* = [0, 5], objective 20), and no kernel launched by it;
+14. prints one JSON line of the three kernels (launch counts of their own
+   paths and of phases 8, 9, 10, 11, 12 and 13, agreement with the twins,
    times, and the least time the card could take for the same work), the
    nvidia-smi line, and last the device line ``{"ok": true, "device":
    {...}}``.
 
-Each path (4, 6, 7, each of phase 8's, phases 9, 10, 11 and 12) runs with
-every launch counter set to 0 just before it and read just after (a
+Each path (4, 6, 7, each of phase 8's, phases 9, 10, 11, 12 and 13) runs
+with every launch counter set to 0 just before it and read just after (a
 worker process reports the launches it made, added to its phase's). Any
 failed check raises, so the exit code is non-zero and no device line is
 printed. Without a GPU, or outside a checkout, it exits non-zero too. The
 compiler's register/shared-memory report, phase 8's, 9's, 10's and 11's
-per-cell conformance lines, phase 9's, 10's, 11's and 12's numbers
+per-cell conformance lines, phase 9's to 13's numbers
 (model_phase.json, sparse_phase.json, structured_phase.json,
-diff_phase.json) and phase 12's trace (diff_trace/trace.json) go to the
-output directory beside the run (``out_dir`` in ``run``).
+diff_phase.json, serve_phase.json), phase 12's trace
+(diff_trace/trace.json) and phase 13's artifacts go to the output
+directory beside the run (``out_dir`` in ``run``).
 """
 
 import functools
@@ -1121,6 +1142,89 @@ def phase12_diff(torch, reset_counts, counts, out_dir):
     return launches, nums
 
 
+def timed_serve(paths):
+    """Phase 13's served half, (b) and (c) in a worker process of its own,
+    which builds no ``BatchedSolver`` before the served stream. Returns (its
+    numbers, the solve_device stream, the solve stream, the last request's
+    x, y, z, the three kernels' launches over (a) and (b), and over
+    (c))."""
+    import torch
+    from osqp_tpu_torch.tools import serving as SV
+    kernels = kernel_wrappers()
+    leg = kernels["admm_solve_shared"]
+    before = {k: fn.launches for k, fn in kernels.items()}
+    _, q, _, l, u = SV.bench_batch(B_MAIN, N, M, SEED)
+    qs = SV.requests(q, SV.N_REQUESTS)
+    dev_out, np_out, nums, last = SV.served_streams(
+        torch, paths["prepared"], "cuda", qs, l, u, lambda: leg.launches)
+    nums["turns"] = SV.in_turns(torch, "cuda", paths["prepared"], qs, l, u,
+                                B_MAIN, N, M)
+    nums["host_reads"] = SV.host_reads(torch, "cuda", paths["prepared"], qs,
+                                       l, u)
+    nums["solver"] = SV.solver_artifact(torch, "cuda", paths["solver"],
+                                        B_MAIN, N, M, say)
+    torch.cuda.synchronize()
+    mid = {k: fn.launches for k, fn in kernels.items()}
+    nums["native"] = SV.native_basic(say)
+    torch.cuda.synchronize()
+    after = {k: fn.launches for k, fn in kernels.items()}
+    xyz = {k: last[k].cpu().numpy() for k in ("x", "y", "z")}
+    return (nums, dev_out, np_out, xyz,
+            {k: mid[k] - before[k] for k in kernels},
+            {k: after[k] - mid[k] for k in kernels})
+
+
+def phase13_serve(torch, reset_counts, counts, out_dir):
+    """Phase 13: the serving artifacts at the bench width and the native
+    engine's loader. Returns (launches of the three kernels over the phase,
+    the numbers it measured)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from types import SimpleNamespace
+    from osqp_tpu_torch.tools import serving as SV
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    solver, nums = SV.export(torch, "cuda", B_MAIN, N, M, out_dir, say)
+    P, q, A, l, u = SV.bench_batch(B_MAIN, N, M, SEED)
+    qs = SV.requests(q, SV.N_REQUESTS)
+    live = SV.live_stream(solver, qs, l, u)
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as one:
+        served, dev_out, np_out, xyz, worker, native_launches = one.submit(
+            timed_serve, nums["paths"]).result()
+    launches = merge_counts(counts(), worker, native_launches)
+    nums.update(SV.report_streams(live, dev_out, np_out, served, B_MAIN,
+                                  say))
+    require(not served["jax_imported"], "[13a] the server imported jax")
+    require(nums["equal_device"] and nums["equal_solve"]
+            and nums["max_dx"] <= SV.X_ATOL and nums["max_dy"] <= SV.X_ATOL,
+            "[13a] a served stream differs from the live one")
+    require(nums["solved_all"], "[13a] a lane was not Solved")
+    require(all(k > 0 for k in served["leg_launches"]),
+            "[13a] a served request did not launch the leg kernel")
+    idx = np.random.RandomState(1).choice(B_MAIN, 64, replace=False)
+    residual_check("[13a] last request", SimpleNamespace(
+        **{k: torch.from_numpy(v) for k, v in xyz.items()}), P, qs[-1], A,
+        l, u, idx)
+    turns = {k: statistics.median(v) for k, v in served["turns"].items()}
+    say(f"[13a] the stream again in turns, median ms a request: "
+        f"solve_device {turns['device']:.2f}, solve {turns['solve']:.2f}, "
+        f"live solve_prepared {turns['live']:.2f}; host reads (synchronizing "
+        f"operations) of a warm request {served['host_reads']}")
+    say(f"[13c] launches over the native engine: {native_launches}")
+    require(not any(native_launches.values()),
+            "[13c] the native engine launched a batched kernel")
+    nums["phase_s"] = time.perf_counter() - t_phase
+    say(f"[13] launches over the serving phase: {launches}; phase "
+        f"{nums['phase_s']:.1f} s")
+    require(launches["admm_solve_shared"] > 0,
+            "[13] serving never launched the leg kernel")
+    (out_dir / "serve_phase.json").write_text(
+        json.dumps(nums, indent=1, default=float))
+    return launches, nums
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1135,7 +1239,7 @@ def main():
 
 
 def run(torch, oracles):
-    """Phases 1-12 and the result lines (``main`` after its checks)."""
+    """Phases 1-13 and the result lines (``main`` after its checks)."""
     from osqp_tpu_torch import constants as C
     from osqp_tpu_torch.batch import BatchedSolver
     from osqp_tpu_torch.linalg import precision_scope
@@ -1638,6 +1742,7 @@ def run(torch, oracles):
     phase10, _ = phase10_sparse(torch, reset_counts, counts, out_dir, oracles)
     phase11, _ = phase11_structured(torch, reset_counts, counts, out_dir)
     phase12, _ = phase12_diff(torch, reset_counts, counts, out_dir)
+    phase13, _ = phase13_serve(torch, reset_counts, counts, out_dir)
 
     ir = iter_rows[iter_variant]
     iter_extra = {f"{v}_{key}": iter_rows[v][k2] for v in ("f32", "lowp")
@@ -1671,7 +1776,8 @@ def run(torch, oracles):
                  phase9_launches=phase9[r["name"]],
                  phase10_launches=phase10[r["name"]],
                  phase11_launches=phase11[r["name"]],
-                 phase12_launches=phase12[r["name"]])
+                 phase12_launches=phase12[r["name"]],
+                 phase13_launches=phase13[r["name"]])
     say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,12 @@ slice by slice and never imports jax. Ported so far:
   whose backward is the masked-KKT adjoint;
 * ``parallel.ScenarioQP`` (``parallel/scenario.py``): consensus ADMM for
   two-stage scenario QPs over the shared-structure engine, on one device;
-* ``utils.profiling``: ``torch.profiler`` traces and named spans.
+* ``utils.profiling``: ``torch.profiler`` traces and named spans;
+* serving artifacts (``serve.py``): ``export_prepared``/``export_solver``
+  write a solver's workspace or settings to a file, ``load_artifact``
+  serves it (``PreparedServer``, ``SolverServer``);
+* ``NativeModel`` (``native.py``): the JAX package's host C++ engine,
+  built from the port's copy of its sources at first use.
 
 Every entry point runs on the GPU unless the caller passes
 ``device="cpu"``. Importing the package builds no kernel.
@@ -60,6 +65,20 @@ from .types import DynParams, Info, QPData, Results, ScalingData, SolveOutput
 #: osqp-python-style alias: ``prob = osqp.OSQP(); prob.setup(...)``
 OSQP = Model
 
+
+def __getattr__(name):
+    # lazy accessors: the serving module and the native engine's loader
+    if name == "NativeModel":
+        from .native import NativeModel
+        return NativeModel
+    if name in ("export_prepared", "load_artifact", "PreparedServer"):
+        from . import serve
+        return {"export_prepared": serve.export_prepared,
+                "load_artifact": serve.load,
+                "PreparedServer": serve.PreparedServer}[name]
+    raise AttributeError(
+        f"module 'osqp_tpu_torch' has no attribute '{name}'")
+
 __all__ = [
     "Model",
     "OSQP",
@@ -67,12 +86,16 @@ __all__ = [
     "SparseModel",
     "BlockTridiagSolver",
     "BandedModel",
+    "NativeModel",
     "BatchedSolver",
     "pad_problems",
     "solve_batch",
     "solve_qp",
     "make_qp_layer",
     "make_batched_qp_layer",
+    "export_prepared",
+    "load_artifact",
+    "PreparedServer",
     "parallel",
     "problems",
     "Settings",

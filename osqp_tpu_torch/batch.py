@@ -110,6 +110,51 @@ def _prepared_solve(Pb, Ab, scal, q, l, u, x0, y0, dyn,
                                     tf32=tf32)
 
 
+def _delta(settings):
+    """Polish's regularization as a 0-d tensor of the compute dtype."""
+    return torch.tensor(settings.delta,
+                        dtype=torch_dtype(settings.resolve_dtype()))
+
+
+def _shared_polish(Pm, A, q, l, u, dyn, settings, out) -> SolveOutput:
+    """Separate polish pass, after the shared engine or the chunked
+    time-limited solve: each lane is re-equilibrated, P and A broadcast
+    to the batch. The shared engine's scaling differs from it only by
+    positive diagonal factors, and polish reads ``out.ybar`` only
+    through its sign (the active-set guess), so the mismatch is
+    harmless."""
+    B, n = q.shape
+    m = l.shape[-1]
+    sdata, scal = scale_problem(QPData(
+        P=Pm.expand(B, n, n), q=q, A=A.expand(B, m, n), l=l, u=u),
+        settings.scaling)
+    pol = polish(sdata, scal, dyn, _delta(settings),
+                 int(settings.polish_refine_iter), out.ybar, out.pri_res,
+                 out.dua_res)
+    return merge_polish(out, pol)
+
+
+def prepared_request(prep: dict, settings: Settings, q, l, u, x0, y0,
+                     factor: FactorCache):
+    """One re-solve of a prepared workspace (``prep``: the unscaled ``P``
+    and ``A``, the scaled ``Pb`` and ``Ab``, their ``scal``) from the
+    carried ``factor``: the prepared solve, polish when the settings ask
+    for it, then the NaN-fill. :meth:`BatchedSolver.solve_prepared` and
+    the serving artifact's :class:`osqp_tpu_torch.serve.PreparedServer`
+    both run this, so a served request equals the live one. Returns
+    (output, the factor to carry into the next request)."""
+    s = settings
+    dyn = dyn_from_settings(s, s.resolve_dtype())
+    with precision_scope():
+        out, fac = _prepared_solve(
+            prep["Pb"], prep["Ab"], prep["scal"], q, l, u, x0, y0, dyn,
+            factor, adaptive=bool(s.adaptive_rho), lowp=s.mixed_precision,
+            tf32=s.tf32())
+    if s.polish:
+        out = _shared_polish(prep["P"], prep["A"], q, l, u, dyn, s, out)
+    return _nanfill(out), fac
+
+
 class BatchedSolver:
     """Solve a batch of same-shape QPs on one device.
 
@@ -210,16 +255,13 @@ class BatchedSolver:
             out = self._dispatch(Pm, q, A, l, u, x0, y0, dyn,
                                  do_polish=bool(s.polish))
             if s.polish and self.kkt_mode == "shared":
-                out = self._apply_polish(Pm, A, q, l, u, dyn, out)
+                out = _shared_polish(Pm, A, q, l, u, dyn, s, out)
             out = _nanfill(out)
         if self.profile:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.last_solve_time = time.perf_counter() - t0
         return out
-
-    def _delta(self):
-        return torch.tensor(self.settings.delta, dtype=self._dtype())
 
     def _dispatch(self, Pm, q, A, l, u, x0, y0, dyn,
                   do_polish: bool) -> SolveOutput:
@@ -235,29 +277,11 @@ class BatchedSolver:
                               l=l, u=u)
                 return _per_lane_solve(
                     data, dyn, s.scaling, x0, y0, self.kkt_mode,
-                    do_polish=do_polish, delta=self._delta(),
+                    do_polish=do_polish, delta=_delta(s),
                     refine_iters=int(s.polish_refine_iter), tf32=s.tf32())
             return solve_shared(Pm, A, q, l, u, dyn, s.scaling, x0, y0,
                                 adaptive=bool(s.adaptive_rho),
                                 lowp=s.mixed_precision, tf32=s.tf32())
-
-    def _apply_polish(self, Pm, A, q, l, u, dyn, out) -> SolveOutput:
-        """Separate polish pass, after the shared engine or the chunked
-        time-limited solve: each lane is re-equilibrated, P and A broadcast
-        to the batch. The shared engine's scaling differs from it only by
-        positive diagonal factors, and polish reads ``out.ybar`` only
-        through its sign (the active-set guess), so the mismatch is
-        harmless."""
-        s = self.settings
-        B, n = q.shape
-        m = l.shape[-1]
-        sdata, scal = scale_problem(QPData(
-            P=Pm.expand(B, n, n), q=q, A=A.expand(B, m, n), l=l, u=u),
-            s.scaling)
-        pol = polish(sdata, scal, dyn, self._delta(),
-                     int(s.polish_refine_iter), out.ybar, out.pri_res,
-                     out.dua_res)
-        return merge_polish(out, pol)
 
     def _solve_time_limited(self, Pm, q, A, l, u, x0, y0,
                             dyn) -> SolveOutput:
@@ -338,7 +362,7 @@ class BatchedSolver:
         out_acc = out_acc._replace(iter=torch.as_tensor(
             iters_acc, dtype=torch.int32, device=self.device))
         if s.polish:
-            out_acc = self._apply_polish(Pm, A, q, l, u, dyn, out_acc)
+            out_acc = _shared_polish(Pm, A, q, l, u, dyn, s, out_acc)
         return _nanfill(out_acc)
 
     # ------------------------------------------------------------------
@@ -395,19 +419,11 @@ class BatchedSolver:
         B, n = q.shape
         m = l.shape[-1]
         x0, y0 = self._starts(x0, y0, B, n, m)
-        dyn = dyn_from_settings(s, s.resolve_dtype())
         factor = p["factor"]
         if rho0 is not None:
             factor = factor._replace(rho_bar=self._t(_rho_value(rho0)))
-        with precision_scope():
-            out, fac = _prepared_solve(
-                p["Pb"], p["Ab"], p["scal"], q, l, u, x0, y0, dyn, factor,
-                adaptive=bool(s.adaptive_rho), lowp=s.mixed_precision,
-                tf32=s.tf32())
-        p["factor"] = fac
-        if s.polish:
-            out = self._apply_polish(p["P"], p["A"], q, l, u, dyn, out)
-        return _nanfill(out)
+        out, p["factor"] = prepared_request(p, s, q, l, u, x0, y0, factor)
+        return out
 
     def solve_rollout(self, q0, l0, u0, step_fn, n_steps: int,
                       x0=None, y0=None, keep_xs: bool = False):

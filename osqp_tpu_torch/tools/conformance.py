@@ -7,7 +7,8 @@ artifact ``conformance.json``::
     python3 -m osqp_tpu_torch.tools.conformance [--device cpu|cuda]
         [--kkt-modes inverse,shared,fused]
         [--columns torch-direct,torch-cg,torch-sparse,torch-sparse-mf,
-                   torch-structured,torch-banded,torch-scenario]
+                   torch-native,torch-structured,torch-banded,
+                   torch-scenario]
         [--sizes S[,M,L]] [--workers N]
 
 Columns: ``BatchedSolver`` of the port (one lane) in each of
@@ -18,7 +19,10 @@ torch-cg), held to its ``jax-direct`` and ``jax-cg`` rows; and
 (``torch-sparse``: the dense direct factor at these sizes, the
 matrix-free path past its bound) or the matrix-free CG path
 (``torch-sparse-mf``, ``linsys_solver="indirect"``), held to the
-``sparse`` and ``sparse-mf`` rows; ``BlockTridiagSolver`` of the port on
+``sparse`` and ``sparse-mf`` rows; ``NativeModel`` of the port (the host
+C++ engine, ``torch-native``, which runs on the host whatever
+``--device`` says), held to the ``native`` rows; ``BlockTridiagSolver`` of
+the port on
 the control family (``torch-structured``, block nx + nu, no polish, as
 the script's :171-184 and :421-434) and ``BandedModel`` on the chain
 family (``torch-banded``, polish on, its :186-197 and :355-366), held to
@@ -63,6 +67,7 @@ import scipy.sparse as sp
 from .. import constants as C
 from ..batch import BatchedSolver
 from ..interface import Model
+from ..native import NativeModel
 from ..parallel.scenario import ScenarioQP
 from ..problems import FAMILIES, SIZE_GRID
 from ..settings import Settings
@@ -84,7 +89,9 @@ SPARSE_COLUMNS = {"torch-sparse": ("qdldl", "sparse"),
 #: engine
 BANDED_COLUMNS = {"torch-structured": ("control_qp", "structured"),
                   "torch-banded": ("chain_qp", "banded")}
-SINGLE_COLUMNS = {**MODEL_COLUMNS, **SPARSE_COLUMNS}
+#: the native engine's column: it takes no linsys_solver
+NATIVE_COLUMNS = {"torch-native": (None, "native")}
+SINGLE_COLUMNS = {**MODEL_COLUMNS, **SPARSE_COLUMNS, **NATIVE_COLUMNS}
 #: the scenario column (the script's float64 settings for its "scenario"
 #: engine): scenarios, consensus eps, sub-solve eps, outer iterations
 SCENARIO_COLUMN = "torch-scenario"
@@ -261,8 +268,9 @@ def _judge(row, kind, data, eps, x, y, z, prim_cert, dual_cert,
 
 def check_model_cell(kind, family, size, column, device, expected,
                      state=None):
-    """Solve one cell through the port's ``Model`` or ``SparseModel`` in
-    float64 (``column`` a key of ``SINGLE_COLUMNS``) and judge it. The
+    """Solve one cell through the port's ``Model``, ``SparseModel`` or
+    ``NativeModel`` in float64 (``column`` a key of ``SINGLE_COLUMNS``)
+    and judge it. The
     residual check takes z = clip(Ax, l, u), since ``Results`` carries no
     z; an update cell's objective is held to the oracle's on the updated
     data (a cell whose oracle does not converge passes on its status, as
@@ -275,8 +283,9 @@ def check_model_cell(kind, family, size, column, device, expected,
                          size)
     eps = FAMILY_EPS.get(family, EPS)
     kw = dict(verbose=False, eps_abs=eps, eps_rel=eps, max_iter=MAX_ITER,
-              polish=True, linsys_solver=SINGLE_COLUMNS[column][0],
-              dtype=np.float64)
+              polish=True)
+    if column not in NATIVE_COLUMNS:
+        kw.update(linsys_solver=SINGLE_COLUMNS[column][0], dtype=np.float64)
     row = dict(kind=kind, family=family, size=size, column=column,
                expected=expected, iters=0)
     t0 = time.perf_counter()
@@ -285,7 +294,8 @@ def check_model_cell(kind, family, size, column, device, expected,
         model, r = state.pop("model"), state.pop("r")
         row["first_solve_shared"] = True
     else:
-        model = (SparseModel if sparse else Model)(device=device)
+        model = (NativeModel() if column in NATIVE_COLUMNS
+                 else (SparseModel if sparse else Model)(device=device))
         try:
             if sparse:
                 model.setup(P=sp.csc_matrix(P), q=q, A=sp.csc_matrix(A),
@@ -586,7 +596,8 @@ def main(argv=None):
     ap.add_argument("--kkt-modes", default="inverse")
     ap.add_argument("--columns", default="",
                     help="single-problem columns: torch-direct,torch-cg,"
-                    "torch-sparse,torch-sparse-mf,torch-structured,"
+                    "torch-sparse,torch-sparse-mf,torch-native,"
+                    "torch-structured,"
                     "torch-banded,torch-scenario")
     ap.add_argument("--sizes", default="S")
     ap.add_argument("--workers", type=int, default=0,

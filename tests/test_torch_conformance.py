@@ -15,8 +15,11 @@ rows (a non-convex cell fails at setup); their update cells re-solve
 warm after ``update(q, l, u)`` and meet the oracle's objective on the
 updated data. The port's ``SparseModel`` columns, torch-sparse (default
 routing) and torch-sparse-mf (the matrix-free CG path), are held the same
-way to the ``sparse`` and ``sparse-mf`` rows. The S cells run here; the M
-and L cells and the update-and-re-solve cells are marked ``slow``.
+way to the ``sparse`` and ``sparse-mf`` rows, and the port's
+``NativeModel`` (torch-native, the host C++ engine) to the ``native``
+rows. The S cells run here, and torch-native's update cells too (its 60
+S and update cells take seconds); the M and L cells and the other
+columns' update-and-re-solve cells are marked ``slow``.
 """
 
 import numpy as np
@@ -190,3 +193,23 @@ def test_sparse_columns_cover_the_artifacts_cells():
         assert set(rows) == set(CF.cells(("S", "M", "L"))) | {
             ("update", f, "S") for f in FAMILIES}
         assert len(rows) == 84
+
+
+@pytest.mark.parametrize("kind", CF.KINDS + ("update",))
+@pytest.mark.parametrize("family", FAMILIES)
+def test_native_conformance_s_cell(family, kind):
+    _check_model(kind, family, "S", "torch-native")
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("size", ["M", "L"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_native_conformance_solved_cell_large(family, size):
+    _check_model("solved", family, size, "torch-native")
+
+
+def test_native_column_covers_the_artifacts_cells():
+    rows = CF.artifact_statuses(engine="native")
+    assert set(rows) == set(CF.cells(("S", "M", "L"))) | {
+        ("update", f, "S") for f in FAMILIES}
+    assert len(rows) == 84

@@ -1001,3 +1001,37 @@ def test_scenario_qp_on_card_matches_cpu_f64(dev, fused):
     assert rg.outer_iters == rc.outer_iters
     np.testing.assert_array_equal(rg.statuses, rc.statuses)
     np.testing.assert_allclose(rg.w, rc.w, rtol=0, atol=1e-8)
+
+
+def test_served_chain_on_card_equals_live(dev):
+    """A prepared artifact served on the card (B=256 at the bench shape,
+    float32): five warm-started requests by solve_device equal the live
+    solve_prepared (statuses and iterations identical, x and y within
+    1e-5), each launching the leg kernel; a CUDA tensor handed to a
+    server on the CPU raises."""
+    from osqp_tpu_torch.serve import export_prepared, load
+    from osqp_tpu_torch.tools.serving import bench_batch, requests, settings
+    P, q, A, l, u = bench_batch(256, 128, 256)
+    solver = BatchedSolver(settings(), kkt_mode="shared",
+                           device=dev).prepare(P, A, q=q)
+    blob = export_prepared(solver, 256)
+    srv = load(blob, device="cuda")
+    x = y = xs = ys = None
+    for qk in requests(q, 5):
+        live = solver.solve_prepared(qk, l, u, x0=x, y0=y)
+        n0 = SK.admm_solve_shared.launches
+        out = dict(zip(srv.FIELDS, srv.solve_device(qk, l, u, x0=xs,
+                                                    y0=ys)))
+        assert SK.admm_solve_shared.launches > n0
+        assert out["x"].device.type == "cuda"
+        assert torch.equal(out["status"], live.status)
+        assert torch.equal(out["iter"], live.iter)
+        for k in ("x", "y"):
+            np.testing.assert_allclose(out[k].cpu().numpy(),
+                                       getattr(live, k).cpu().numpy(),
+                                       rtol=0, atol=1e-5)
+        assert bool((out["status"] == C.SOLVED).all())
+        x, y, xs, ys = live.x, live.y, out["x"], out["y"]
+    cpu_srv = load(blob, device="cpu")
+    with pytest.raises(ValueError, match="device='cuda'"):
+        cpu_srv.solve_device(torch.as_tensor(q, device=dev), l, u)
