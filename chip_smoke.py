@@ -163,21 +163,41 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``BatchedSolver(kkt_mode="shared").solve``; (c) ``NativeModel`` built
    from ``osqp_tpu_torch/csrc/native/`` on the host CPU, the
    basic QP (x* = [0, 5], objective 20), and no kernel launched by it;
-14. prints one JSON line of the three kernels (launch counts of their own
-   paths and of phases 8, 9, 10, 11, 12 and 13, agreement with the twins,
-   times, and the least time the card could take for the same work), the
-   nvidia-smi line, and last the device line ``{"ok": true, "device":
-   {...}}``.
+14. drives mesh sharding (``torch.distributed``) in fresh processes
+   (``osqp_tpu_torch/tools/mesh_smoke.py``; with one GPU, NCCL runs at
+   world 1 and two ranks share the card over gloo): (a)
+   ``BatchedSolver(mesh=batch_mesh())`` over NCCL at world 1 on the phase
+   4 batch, statuses, iterations and x equal to the unsharded solve; (b)
+   the same batch over gloo at world 2 (2048 lanes a rank) in "shared",
+   mixed-precision and "fused" modes, statuses and rho updates equal to
+   the unsharded solve's, iterations on at least 99.9% of the lanes, each
+   mode's kernel launched on both ranks; (c) ``ScenarioQP(mesh)`` at
+   phase 12c's width, fused and host loops, outer iterations equal to the
+   unsharded run's; (d) ``BlockTridiagSolver(mesh)`` on phase 11's
+   control_qp T=500 with 32 lanes; (e) row sharding: ``SparseModel(mesh)``
+   on BASELINE #4 in ELL and ``ShardedQP`` on control_qp L, status equal
+   to the unsharded solve's and the float32 x within 1e-3 relative (of
+   the unsharded x for ``SparseModel``, of the float64 solution for
+   ``ShardedQP``), and ``ShardedQP`` in float64 at eps 1e-9 with the
+   unsharded solve's status and iterations and x within 1e-9 relative;
+   one JSON line a cell (ms per rank, launches per rank, collectives a
+   solve and their ms);
+15. prints one JSON line of the three kernels (launch counts of their own
+   paths and of phases 8, 9, 10, 11, 12, 13 and 14, agreement with the
+   twins, times, and the least time the card could take for the same
+   work), the nvidia-smi line, and last the device line ``{"ok": true,
+   "device": {...}}``.
 
-Each path (4, 6, 7, each of phase 8's, phases 9, 10, 11, 12 and 13) runs
+Each path (4, 6, 7, each of phase 8's, phases 9, 10, 11, 12, 13 and 14)
+runs
 with every launch counter set to 0 just before it and read just after (a
 worker process reports the launches it made, added to its phase's). Any
 failed check raises, so the exit code is non-zero and no device line is
 printed. Without a GPU, or outside a checkout, it exits non-zero too. The
 compiler's register/shared-memory report, phase 8's, 9's, 10's and 11's
-per-cell conformance lines, phase 9's to 13's numbers
+per-cell conformance lines, phase 9's to 14's numbers
 (model_phase.json, sparse_phase.json, structured_phase.json,
-diff_phase.json, serve_phase.json), phase 12's trace
+diff_phase.json, serve_phase.json, mesh_phase.json), phase 12's trace
 (diff_trace/trace.json) and phase 13's artifacts go to the output
 directory beside the run (``out_dir`` in ``run``).
 """
@@ -1225,6 +1245,27 @@ def phase13_serve(torch, reset_counts, counts, out_dir):
     return launches, nums
 
 
+def phase14_mesh(torch, reset_counts, counts, out_dir):
+    """Phase 14: mesh sharding, every cell in fresh processes
+    (``tools/mesh_smoke.py``). Returns (launches of the three kernels over
+    the phase, summed over its processes; the numbers it measured)."""
+    from osqp_tpu_torch.tools import mesh_smoke as MS
+
+    reset_counts()
+    rows, launches, seconds = MS.run(
+        str(out_dir), MS.config("cuda", B=B_MAIN, n=N, m=M), say=say,
+        require=require)
+    launches = merge_counts(counts(), launches)
+    say(f"[14] launches over the mesh phase: {launches}; phase "
+        f"{seconds:.1f} s")
+    require(launches["admm_solve_shared"] > 0,
+            "[14] the mesh paths never launched the leg kernel")
+    (out_dir / "mesh_phase.json").write_text(
+        json.dumps(dict(rows=rows, launches=launches, seconds=seconds),
+                   indent=1, default=float))
+    return launches, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1239,7 +1280,7 @@ def main():
 
 
 def run(torch, oracles):
-    """Phases 1-13 and the result lines (``main`` after its checks)."""
+    """Phases 1-14 and the result lines (``main`` after its checks)."""
     from osqp_tpu_torch import constants as C
     from osqp_tpu_torch.batch import BatchedSolver
     from osqp_tpu_torch.linalg import precision_scope
@@ -1743,6 +1784,7 @@ def run(torch, oracles):
     phase11, _ = phase11_structured(torch, reset_counts, counts, out_dir)
     phase12, _ = phase12_diff(torch, reset_counts, counts, out_dir)
     phase13, _ = phase13_serve(torch, reset_counts, counts, out_dir)
+    phase14, _ = phase14_mesh(torch, reset_counts, counts, out_dir)
 
     ir = iter_rows[iter_variant]
     iter_extra = {f"{v}_{key}": iter_rows[v][k2] for v in ("f32", "lowp")
@@ -1777,7 +1819,8 @@ def run(torch, oracles):
                  phase10_launches=phase10[r["name"]],
                  phase11_launches=phase11[r["name"]],
                  phase12_launches=phase12[r["name"]],
-                 phase13_launches=phase13[r["name"]])
+                 phase13_launches=phase13[r["name"]],
+                 phase14_launches=phase14[r["name"]])
     say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {

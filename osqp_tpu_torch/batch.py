@@ -19,8 +19,14 @@ the host and marks lanes still running at expiry Time_limit_reached;
 ``profile=True`` records each solve's synced wall time.
 
 Solves run on the solver's device, the GPU unless the caller passes
-``device="cpu"``. Not ported yet, and refused rather than served by another
-path: ``mesh``.
+``device="cpu"``.
+
+``mesh`` (a 1-D ``DeviceMesh``, :func:`osqp_tpu_torch.parallel.batch_mesh`)
+shards the lanes over the ranks of a process group, one process a rank:
+every rank passes the global batch and gets back its own lanes. The
+per-lane modes need no collective; the shared engine's batch reductions
+become collectives (:mod:`osqp_tpu_torch.shared_core`), and a
+time-limited solve agrees on its stop after every chunk.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from .batch_core import solve_batch as _per_lane_solve
 from .core import (dyn_from_settings, resolve_device, scale_problem,
                    torch_dtype)
 from .linalg import precision_scope
+from .parallel import comm
 from .polish import polish
 from .settings import Settings
 from .shared_core import (
@@ -178,19 +185,28 @@ class BatchedSolver:
     device sync, in ``last_solve_time`` (the batched analogue of
     ``Info.solve_time``; per lane it is this / B). Off by default, since
     the sync stops the host from running ahead of the device.
+
+    ``mesh``: the lanes of :meth:`solve` are sharded over the mesh's ranks
+    (B divisible by the mesh size); each rank passes the global inputs and
+    gets its own lanes back (``parallel.gather`` for the batch). The device
+    is the mesh's unless given. :meth:`prepare`, :meth:`solve_prepared`
+    and :meth:`solve_rollout` do not read the mesh, as in the JAX package:
+    each rank solves the whole batch it is given. ``axis_name`` picks the
+    axis of a multi-axis mesh that the lanes split over (the other axes
+    hold replicas, as ``P(axis_name)`` in the JAX package); a 1-D mesh is
+    used whatever its axis is named. ``self.mesh`` is that axis.
     """
 
     def __init__(self, settings: Optional[Settings] = None,
                  kkt_mode: str = "inverse", device=None, mesh=None,
-                 profile: bool = False):
+                 profile: bool = False, axis_name: str = "b"):
         if kkt_mode != "shared" and kkt_mode not in KKT_MODES:
             raise ValueError(f"kkt_mode {kkt_mode!r} not in "
                              f"{('shared',) + KKT_MODES}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (batch sharding across devices) is not ported yet "
-                "(ROADMAP queue 1 item 11)")
-        self.device = resolve_device(device)
+        self.axis_name = axis_name
+        self.mesh = mesh = comm.axis(mesh, axis_name)
+        self.device = (resolve_device(device) if mesh is None
+                       else comm.check_device(mesh, device))
         self.settings = settings or Settings()
         self.kkt_mode = kkt_mode
         self.profile = bool(profile)
@@ -233,7 +249,26 @@ class BatchedSolver:
         shared or, in the per-lane modes, (B,n,n)/(B,m,n) stacked; optional
         unscaled warm starts x0 (B,n), y0 (B,m). ``rho0`` overrides
         ``settings.rho`` for this solve (pass a previous solve's
-        ``out.rho_estimate`` for warm-re-solve economics)."""
+        ``out.rho_estimate`` for warm-re-solve economics).
+
+        Under ``mesh`` the inputs are the global batch and the result is
+        this rank's block of lanes."""
+        if self.mesh is None:
+            return self.solve_block(Pm, q, A, l, u, x0, y0, rho0)
+        Pm, q, A, l, u = (self._t(v) for v in (Pm, q, A, l, u))
+        sl = comm.block(self.mesh, q.shape[0])
+        Pm = Pm[sl] if Pm.ndim == 3 else Pm
+        A = A[sl] if A.ndim == 3 else A
+        x0 = None if x0 is None else self._t(x0)[sl]
+        y0 = None if y0 is None else self._t(y0)[sl]
+        return self.solve_block(Pm, q[sl], A, l[sl], u[sl], x0, y0, rho0)
+
+    def solve_block(self, Pm, q, A, l, u, x0=None, y0=None,
+                    rho0=None) -> SolveOutput:
+        """:meth:`solve` on this rank's lanes, already cut from the batch
+        (the whole batch without a mesh): the inputs of a caller that keeps
+        its lanes sharded across calls, as ``ScenarioQP``'s host loop
+        does. Every rank calls it together, with equal blocks."""
         t0 = time.perf_counter()
         s = self.settings
         dtype = s.resolve_dtype()
@@ -281,7 +316,8 @@ class BatchedSolver:
                     refine_iters=int(s.polish_refine_iter), tf32=s.tf32())
             return solve_shared(Pm, A, q, l, u, dyn, s.scaling, x0, y0,
                                 adaptive=bool(s.adaptive_rho),
-                                lowp=s.mixed_precision, tf32=s.tf32())
+                                lowp=s.mixed_precision, tf32=s.tf32(),
+                                mesh=self.mesh)
 
     def _solve_time_limited(self, Pm, q, A, l, u, x0, y0,
                             dyn) -> SolveOutput:
@@ -294,7 +330,12 @@ class BatchedSolver:
         A lane that finishes keeps the values of the chunk it finished in.
         Chunk boundaries re-enter ADMM by warm start (z re-derived as Ax)
         and resume the rho back-off state, so per-lane iteration counts can
-        differ slightly from an unchunked run; statuses do not."""
+        differ slightly from an unchunked run; statuses do not.
+
+        Under a mesh the ranks agree after every chunk on whether lanes
+        remain anywhere, the clock ran out anywhere, or any rank was
+        interrupted (SIGINT is deferred to the chunk's end), so all run
+        the same chunks and no rank waits alone in a collective."""
         s = self.settings
         max_iter = int(s.max_iter)
         chunk = s.check_termination if s.check_termination > 0 else 25
@@ -304,57 +345,68 @@ class BatchedSolver:
         total = 0
         out_acc = done = iters_acc = status_val = resume = None
         xw, yw = x0, y0
-        try:
-            while total < max_iter:
-                this = min(chunk, max_iter - total)
-                is_final = total + this >= max_iter
-                dyn_c = dyn._replace(max_iter=this,
-                                     final_approx=1 if is_final else 0)
-                if resume is not None:
-                    # the back-off schedule persists across chunks; its
-                    # next update is counted from the chunk's start
-                    dyn_c = dyn_c._replace(rho_dir0=resume[0],
-                                           rho_gap0=resume[1],
-                                           next_rho0=resume[2])
-                out = self._dispatch(Pm, q, A, l, u, xw, yw, dyn_c,
-                                     do_polish=False)
-                resume = (out.rho_dir, out.rho_gap,
-                          _rebase(out.next_rho, this))
-                # the host copy waits for the chunk, so the clock below
-                # reads after its results exist
-                st = out.status.cpu().numpy()
-                it = out.iter.cpu().numpy().astype(np.int64)
+        with comm.interrupts(self.mesh) as sigint:
+            try:
+                while total < max_iter:
+                    this = min(chunk, max_iter - total)
+                    is_final = total + this >= max_iter
+                    dyn_c = dyn._replace(max_iter=this,
+                                         final_approx=1 if is_final else 0)
+                    if resume is not None:
+                        # the back-off schedule persists across chunks;
+                        # its next update is counted from the chunk's start
+                        dyn_c = dyn_c._replace(rho_dir0=resume[0],
+                                               rho_gap0=resume[1],
+                                               next_rho0=resume[2])
+                    out = self._dispatch(Pm, q, A, l, u, xw, yw, dyn_c,
+                                         do_polish=False)
+                    resume = (out.rho_dir, out.rho_gap,
+                              _rebase(out.next_rho, this))
+                    # the host copy waits for the chunk, so the clock
+                    # below reads after its results exist
+                    st = out.status.cpu().numpy()
+                    it = out.iter.cpu().numpy().astype(np.int64)
+                    if out_acc is None:
+                        out_acc = out
+                        done = np.zeros(st.shape, bool)
+                        iters_acc = np.zeros(st.shape, np.int64)
+                    newly = ((~done) & (st != C.RUNNING)
+                             & (st != C.MAX_ITER_REACHED))
+                    iters_acc = np.where(done, iters_acc, total + it)
+                    # lanes done before this chunk keep their committed
+                    # values
+                    keep = torch.as_tensor(done, device=self.device)
+                    keepc = keep[:, None]
+                    out_acc = out_acc._replace(**{
+                        f: torch.where(keep if getattr(out, f).ndim == 1
+                                       else keepc, getattr(out_acc, f),
+                                       getattr(out, f))
+                        for f in ("x", "y", "z", "status", "pri_res",
+                                  "dua_res", "obj_val", "prim_cert",
+                                  "dual_cert", "xbar", "ybar", "zbar")})
+                    done = done | newly
+                    total += this
+                    if is_final:
+                        # the lanes not done keep the final chunk's
+                        # classification (approximate statuses included)
+                        break
+                    # one decision for every rank: lanes left anywhere,
+                    # the clock out anywhere, an interrupt on any rank
+                    left, late, intr = comm.agree(
+                        [not np.all(done),
+                         time.perf_counter() - start > s.time_limit,
+                         sigint[0]], self.mesh)
+                    if not left:
+                        break
+                    if intr or late:
+                        status_val = (C.INTERRUPTED if intr
+                                      else C.TIME_LIMIT_REACHED)
+                        break
+                    xw, yw = out.x, out.y
+            except KeyboardInterrupt:
                 if out_acc is None:
-                    out_acc = out
-                    done = np.zeros(st.shape, bool)
-                    iters_acc = np.zeros(st.shape, np.int64)
-                newly = ((~done) & (st != C.RUNNING)
-                         & (st != C.MAX_ITER_REACHED))
-                iters_acc = np.where(done, iters_acc, total + it)
-                # lanes done before this chunk keep their committed values
-                keep = torch.as_tensor(done, device=self.device)
-                keepc = keep[:, None]
-                out_acc = out_acc._replace(**{
-                    f: torch.where(keep if getattr(out, f).ndim == 1
-                                   else keepc, getattr(out_acc, f),
-                                   getattr(out, f))
-                    for f in ("x", "y", "z", "status", "pri_res", "dua_res",
-                              "obj_val", "prim_cert", "dual_cert", "xbar",
-                              "ybar", "zbar")})
-                done = done | newly
-                total += this
-                if np.all(done) or is_final:
-                    # the lanes not done keep the final chunk's
-                    # classification (approximate statuses included)
-                    break
-                if (time.perf_counter() - start) > s.time_limit:
-                    status_val = C.TIME_LIMIT_REACHED
-                    break
-                xw, yw = out.x, out.y
-        except KeyboardInterrupt:
-            if out_acc is None:
-                raise
-            status_val = C.INTERRUPTED
+                    raise
+                status_val = C.INTERRUPTED
         if status_val is not None:
             out_acc = out_acc._replace(status=torch.where(
                 torch.as_tensor(done, device=self.device), out_acc.status,
@@ -475,7 +527,7 @@ def solve_batch(Pm, q, A, l, u, settings: Optional[Settings] = None,
                 mesh=None, x0=None, y0=None, kkt_mode: str = "inverse",
                 device=None) -> SolveOutput:
     """One-shot functional batched solve (convenience wrapper around
-    :class:`BatchedSolver`)."""
+    :class:`BatchedSolver`; under ``mesh``, this rank's lanes)."""
     return BatchedSolver(settings, kkt_mode=kkt_mode, device=device,
                          mesh=mesh).solve(Pm, q, A, l, u, x0=x0, y0=y0)
 

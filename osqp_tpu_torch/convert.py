@@ -182,23 +182,30 @@ def padded_op_to_torch(op, device, dtype):
                     sq_tvals=vals(op.sq_tvals), diag=vals(op.diag))
 
 
-def sparse_model_to_torch(jax_model, device):
+def sparse_model_to_torch(jax_model, device, mesh=None):
     """A set-up ``osqp_tpu.sparse_core.SparseModel`` → a port
     ``SparseModel`` on ``device`` in the same dtype, with the same
     settings, routing, canonical CSC matrices, operators (or densified
     matrices on the direct route), q, l, u and warm starts, so that both
     packages solve from one state; a model of the banded backend carries
     its :class:`~osqp_tpu_torch.band.BandedModel` across
-    (:func:`banded_model_to_torch`). A model sharded over a mesh has no
-    counterpart in the port and raises."""
+    (:func:`banded_model_to_torch`).
+
+    A model row-sharded over a JAX mesh becomes, with ``mesh`` (a torch
+    mesh, called in every rank), the port's model on that mesh: this
+    rank's rows of the operator (rebuilt from the canonical matrices, as
+    the JAX package built its own), of l, u and the dual warm start; with
+    ``mesh`` None, an unsharded model of the same global state. A
+    ``mesh`` asks for a model the JAX side sharded too."""
+    from .parallel import comm
     from .settings import Settings
     from .sparse_core import SparseModel
 
-    if getattr(jax_model, "_mesh", None) is not None:
-        raise NotImplementedError(
-            "mesh sharding is not ported (ROADMAP queue 1 item 11)")
+    if mesh is not None and getattr(jax_model, "_mesh", None) is None:
+        raise ValueError("mesh given for a SparseModel the JAX package did "
+                         "not shard")
     dtype = np.dtype(jax_model._dtype)
-    model = SparseModel(device=device)
+    model = SparseModel(device=device, mesh=mesh)
     settings = jax_model.settings.asdict()
     settings["dtype"] = dtype
     model.settings = Settings(**settings)
@@ -210,7 +217,10 @@ def sparse_model_to_torch(jax_model, device):
     model._A_csc = jax_model._A_csc.copy()
     model._fmt = ("padded" if jax_model._make.__name__ == "padded_op_from_coo"
                   else "bcoo")
-    if model._direct:
+    model._rows = comm.block(mesh, model.m, "m")
+    if mesh is not None:
+        model._rebuild_ops()
+    elif model._direct:
         model._P_dense = _tensor(jax_model._P_dense, device, dtype)
         model._A_dense = _tensor(jax_model._A_dense, device, dtype)
     else:
@@ -218,9 +228,12 @@ def sparse_model_to_torch(jax_model, device):
                 else sparse_op_to_torch)
         model._P_op = conv(jax_model._P_op, device, dtype)
         model._A_op = conv(jax_model._A_op, device, dtype)
-    model._q, model._l, model._u, model._x0, model._y0 = (
-        _tensor(getattr(jax_model, k), device, dtype)
-        for k in ("_q", "_l", "_u", "_x0", "_y0"))
+    model._q, model._x0 = (_tensor(getattr(jax_model, k), device, dtype)
+                           for k in ("_q", "_x0"))
+    model._l, model._u, model._y0 = (
+        _tensor(np.asarray(getattr(jax_model, k))[model._rows], device,
+                dtype)
+        for k in ("_l", "_u", "_y0"))
     model._band = (None if jax_model._band is None
                    else banded_model_to_torch(jax_model._band, device))
     model._is_setup = True
@@ -254,16 +267,18 @@ def tfactor_to_torch(factor, kkt, device, dtype):
                    rho_bar=t(factor.rho_bar))
 
 
-def structured_to_torch(jax_solver, device):
+def structured_to_torch(jax_solver, device, mesh=None):
     """A set-up ``osqp_tpu.structured.BlockTridiagSolver`` → a port
     ``BlockTridiagSolver`` on ``device`` in the same dtype, with the same
     settings, banded data, scaling and carried factor, so that both
-    packages solve from one factor state."""
+    packages solve from one factor state. ``mesh``: the port's solver
+    shards its lanes over that torch mesh (the state is replicated, so a
+    JAX solver built with or without a mesh converts alike)."""
     from .settings import Settings
     from .structured import BandedScaling, BlockTridiagSolver
 
     dtype = np.dtype(jax_solver._dtype)
-    st = BlockTridiagSolver(device=device)
+    st = BlockTridiagSolver(device=device, mesh=mesh)
     settings = jax_solver.settings.asdict()
     settings["dtype"] = dtype
     st.settings = Settings(**settings)
@@ -300,19 +315,18 @@ def banded_model_to_torch(jax_model, device):
     return model
 
 
-def scenario_to_torch(jax_sq, device):
+def scenario_to_torch(jax_sq, device, mesh=None):
     """An ``osqp_tpu.parallel.scenario.ScenarioQP`` → the port's on
     ``device``: the same k, gamma, consensus tolerance, max_outer and
     settings, with the dtype that the reference resolves (its x64 flag)
-    pinned, since the port's default dtype is torch's."""
+    pinned, since the port's default dtype is torch's. ``mesh``: a torch
+    mesh to shard the scenarios over (a JAX ``ScenarioQP`` built with a
+    mesh converts with or without one; it carries no sharded state)."""
     from .parallel.scenario import ScenarioQP
     from .settings import Settings
 
-    if getattr(jax_sq, "mesh", None) is not None:
-        raise NotImplementedError(
-            "mesh sharding is not ported (ROADMAP queue 1 item 11)")
     fields = dict(jax_sq.settings.asdict(),
                   dtype=np.dtype(jax_sq.settings.resolve_dtype()))
     return ScenarioQP(k=jax_sq.k, gamma=jax_sq.gamma,
                       eps_consensus=jax_sq.eps, max_outer=jax_sq.max_outer,
-                      settings=Settings(**fields), device=device)
+                      settings=Settings(**fields), mesh=mesh, device=device)

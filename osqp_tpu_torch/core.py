@@ -14,6 +14,16 @@ ADMM loop as a host loop of torch calls, with a direct (dense Cholesky)
 or an indirect (block-Jacobi CG) KKT solve; ``interface.Model`` drives it.
 The sparse engine (:mod:`osqp_tpu_torch.sparse_core`) runs the same loop
 on sparse operators, with a Jacobi-preconditioned CG.
+
+Row sharding (``mesh=``, :class:`osqp_tpu_torch.parallel.ShardedQP`,
+``SparseModel(mesh=...)``): each rank holds its block of A's rows and of
+the m-vectors (l, u, z, y, rho), while P, q, x and the KKT factor are
+replicated. Every coupling term is a collective of
+:mod:`osqp_tpu_torch.parallel.comm`: Aᵀv is a SUM of the ranks' partial
+products (so AᵀρA, the CG matrix products and the Jacobi diagonal too),
+the m-side norms are MAX, the certificates' row conditions ALL and their
+support sums SUM. Every decision is taken from reduced values, so all
+ranks take it alike.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from . import constants as C
 from .linalg import (cg_solve, chol_factor, chol_solve, inf_norm,
                      precision_scope, reduced_kkt)
 from .ops.shared_iter import dot3, split_bf16
+from .parallel import comm
 from .scaling import identity_scaling, ruiz_equilibrate
 from .types import DynParams, QPData, ScalingData, SolveOutput
 
@@ -132,17 +143,20 @@ def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 
 
-def _mtv(M, v):
+def _mtv(M, v, mesh=None):
     """(..., r, c)^T @ (..., r) -> (..., c); a sparse operator applies its
-    stored transpose."""
+    stored transpose. Under ``mesh`` M and v are this rank's rows and the
+    partial products are summed over the ranks."""
     if not isinstance(M, torch.Tensor):
-        return M.T @ v
-    return (v[..., None, :] @ M)[..., 0, :]
+        return comm.sum(M.T @ v, mesh)
+    return comm.sum((v[..., None, :] @ M)[..., 0, :], mesh)
 
 
-def residual_norms(sdata: QPData, scal: ScalingData, dyn: DynParams, x, y, z):
+def residual_norms(sdata: QPData, scal: ScalingData, dyn: DynParams, x, y, z,
+                   mesh=None):
     """pri_res = ‖Ax−z‖∞, dua_res = ‖Px+q+Aᵀy‖∞ and their eps_rel
-    normalizations, unscaled unless ``scaled_termination``."""
+    normalizations, unscaled unless ``scaled_termination``; under ``mesh``
+    over every rank's rows."""
     if dyn.scaled_termination:
         Einv, Dinv = torch.ones_like(scal.Einv), torch.ones_like(scal.Dinv)
         cinv = torch.ones_like(scal.cinv)
@@ -150,9 +164,12 @@ def residual_norms(sdata: QPData, scal: ScalingData, dyn: DynParams, x, y, z):
         Einv, Dinv, cinv = scal.Einv, scal.Dinv, scal.cinv
     Ax = _mv(sdata.A, x)
     Px = _mv(sdata.P, x)
-    Aty = _mtv(sdata.A, y)
-    pri_res = inf_norm(Einv * (Ax - z))
-    pri_norm = torch.maximum(inf_norm(Einv * Ax), inf_norm(Einv * z))
+    Aty = _mtv(sdata.A, y, mesh)
+    rows = comm.max(torch.stack([inf_norm(Einv * (Ax - z)),
+                                 inf_norm(Einv * Ax), inf_norm(Einv * z)]),
+                    mesh)
+    pri_res = rows[0]
+    pri_norm = torch.maximum(rows[1], rows[2])
     dua_res = cinv * inf_norm(Dinv * (Px + sdata.q + Aty))
     dua_norm = cinv * torch.maximum(
         torch.maximum(inf_norm(Dinv * Px), inf_norm(Dinv * Aty)),
@@ -160,18 +177,20 @@ def residual_norms(sdata: QPData, scal: ScalingData, dyn: DynParams, x, y, z):
     return ResInfo(pri_res, dua_res, pri_norm, dua_norm)
 
 
-def primal_infeasibility(sdata: QPData, scal: ScalingData, dy_bar, eps):
+def primal_infeasibility(sdata: QPData, scal: ScalingData, dy_bar, eps,
+                         mesh=None):
     """Primal infeasibility test on the dual step δy, unscaled:
     ‖Aᵀδy‖∞ ≤ ε‖δy‖∞ and uᵀ(δy)₊ + lᵀ(δy)₋ < −ε‖δy‖∞, infinite bounds
     requiring the matching component of δy to vanish. Returns (detected,
-    normalized δy)."""
+    normalized δy); under ``mesh`` δy is this rank's rows and the test is
+    over every rank's."""
     if dy_bar.shape[-1] == 0:
         return torch.zeros(dy_bar.shape[:-1], dtype=torch.bool,
                            device=dy_bar.device), dy_bar
     dy = scal.cinv[..., None] * scal.E * dy_bar
-    nrm = inf_norm(dy)
+    nrm = comm.max(inf_norm(dy), mesh)
     dyn_ = dy * (1.0 / torch.clamp(nrm, min=_DIV_GUARD))[..., None]
-    At_dy = scal.Dinv * _mtv(sdata.A, scal.Einv * dyn_)
+    At_dy = scal.Dinv * _mtv(sdata.A, scal.Einv * dyn_, mesh)
     cond_mat = inf_norm(At_dy) <= eps
     u = scal.Einv * sdata.u
     l = scal.Einv * sdata.l
@@ -179,19 +198,22 @@ def primal_infeasibility(sdata: QPData, scal: ScalingData, dy_bar, eps):
     l_inf = l <= -C.INFTY_THRESH
     dyp = torch.clamp(dyn_, min=0.0)
     dym = torch.clamp(dyn_, max=0.0)
-    bound_ok = torch.all((~u_inf | (dyp <= eps)) & (~l_inf | (-dym <= eps)),
-                         dim=-1)
+    bound_ok = comm.all(torch.all(
+        (~u_inf | (dyp <= eps)) & (~l_inf | (-dym <= eps)), dim=-1), mesh)
     zero = dy.new_zeros(())
-    lhs = torch.sum(torch.where(u_inf, zero, u * dyp)
-                    + torch.where(l_inf, zero, l * dym), dim=-1)
+    lhs = comm.sum(torch.sum(torch.where(u_inf, zero, u * dyp)
+                             + torch.where(l_inf, zero, l * dym), dim=-1),
+                   mesh)
     detected = (nrm > eps) & cond_mat & bound_ok & (lhs < -eps)
     return detected, dyn_
 
 
-def dual_infeasibility(sdata: QPData, scal: ScalingData, dx_bar, eps):
+def dual_infeasibility(sdata: QPData, scal: ScalingData, dx_bar, eps,
+                       mesh=None):
     """Dual infeasibility test on the primal step δx, unscaled:
     ‖Pδx‖∞ ≤ ε‖δx‖∞, qᵀδx < −ε‖δx‖∞, and Aδx a recession direction of
-    [l, u]. Returns (detected, normalized δx)."""
+    [l, u] (on every rank's rows under ``mesh``). Returns (detected,
+    normalized δx)."""
     dx = scal.D * dx_bar
     nrm = inf_norm(dx)
     s = (1.0 / torch.clamp(nrm, min=_DIV_GUARD))[..., None]
@@ -208,8 +230,9 @@ def dual_infeasibility(sdata: QPData, scal: ScalingData, dx_bar, eps):
         l = scal.Einv * sdata.l
         u_inf = u >= C.INFTY_THRESH
         l_inf = l <= -C.INFTY_THRESH
-        cond_A = torch.all((u_inf | (A_dx <= eps)) & (l_inf | (A_dx >= -eps)),
-                           dim=-1)
+        cond_A = comm.all(torch.all(
+            (u_inf | (A_dx <= eps)) & (l_inf | (A_dx >= -eps)), dim=-1),
+            mesh)
     else:
         cond_A = torch.ones_like(cond_P)
     detected = (nrm > eps) & cond_P & cond_q & cond_A
@@ -217,19 +240,19 @@ def dual_infeasibility(sdata: QPData, scal: ScalingData, dx_bar, eps):
 
 
 def termination_status(sdata, scal, dyn, x, y, z, dx_bar, dy_bar,
-                       eps_factor, accurate: bool):
+                       eps_factor, accurate: bool, mesh=None):
     """Full termination decision. Returns (status, ResInfo); priority
     Non_convex > Solved > Primal_infeasible > Dual_infeasible.
     ``accurate=False`` gives the *_inaccurate codes."""
-    res = residual_norms(sdata, scal, dyn, x, y, z)
+    res = residual_norms(sdata, scal, dyn, x, y, z, mesh)
     eps_abs = dyn.eps_abs * eps_factor
     eps_rel = dyn.eps_rel * eps_factor
     solved = ((res.pri_res <= eps_abs + eps_rel * res.pri_norm)
               & (res.dua_res <= eps_abs + eps_rel * res.dua_norm))
     prim_inf, _ = primal_infeasibility(sdata, scal, dy_bar,
-                                       dyn.eps_prim_inf * eps_factor)
+                                       dyn.eps_prim_inf * eps_factor, mesh)
     dual_inf, _ = dual_infeasibility(sdata, scal, dx_bar,
-                                     dyn.eps_dual_inf * eps_factor)
+                                     dyn.eps_dual_inf * eps_factor, mesh)
     # diverging residuals: the problem is likely non-convex
     bad = (torch.isnan(res.pri_res) | torch.isnan(res.dua_res)
            | (res.pri_res > C.OSQP_INFTY) | (res.dua_res > C.OSQP_INFTY))
@@ -246,9 +269,10 @@ def termination_status(sdata, scal, dyn, x, y, z, dx_bar, dy_bar,
     return status.to(torch.int32), res
 
 
-def scale_problem(data: QPData, scaling_iters: int):
+def scale_problem(data: QPData, scaling_iters: int, mesh=None):
     """Clip bounds to ±OSQP_INFTY and Ruiz-equilibrate (0 rounds: unit
-    scalings). Leading batch axes allowed."""
+    scalings). Leading batch axes allowed; under ``mesh`` A, l, u are
+    this rank's rows."""
     l = torch.clamp(data.l, -C.OSQP_INFTY, C.OSQP_INFTY)
     u = torch.clamp(data.u, -C.OSQP_INFTY, C.OSQP_INFTY)
     data = data._replace(l=l, u=u)
@@ -256,7 +280,7 @@ def scale_problem(data: QPData, scaling_iters: int):
         P = data.P
         return data, identity_scaling(P.shape[-1], data.A.shape[-2],
                                       P.dtype, P.device, P.shape[:-2])
-    return ruiz_equilibrate(data, scaling_iters)
+    return ruiz_equilibrate(data, scaling_iters, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -279,20 +303,23 @@ class FactorState(NamedTuple):
 _BJ_BLOCK = 128
 
 
-def _kkt_precompute(sdata: QPData, sigma, rho_vec, indirect: bool):
+def _kkt_precompute(sdata: QPData, sigma, rho_vec, indirect: bool,
+                    mesh=None):
     """The factor of R = P̄ + σI + ĀᵀρĀ: its Cholesky factor (direct), or
     for the indirect path the Cholesky factors of its diagonal blocks
     (dense operators; a block whose factorization fails, in float32 near
     singularity, is the identity, so it does not poison every
     preconditioner apply) or the Jacobi diagonal diag(R)⁻¹ (sparse
-    operators, from their diagonal and squared-transpose companions)."""
+    operators, from their diagonal and squared-transpose companions).
+    Under ``mesh`` the AᵀρA terms are summed over the ranks' rows first,
+    so the factor is the same on every rank."""
     P, A = sdata.P, sdata.A
     if not indirect:
-        return chol_factor(reduced_kkt(P, A, sigma, rho_vec))
+        return chol_factor(reduced_kkt(P, A, sigma, rho_vec, mesh))
     if not isinstance(P, torch.Tensor):
         d = P.diag + sigma
         if A.shape[0] > 0:
-            d = d + A.sqT @ rho_vec
+            d = d + comm.sum(A.sqT @ rho_vec, mesh)
         return 1.0 / d
     n, dtype, dev = P.shape[0], P.dtype, P.device
     bs = min(_BJ_BLOCK, n)
@@ -307,26 +334,29 @@ def _kkt_precompute(sdata: QPData, sigma, rho_vec, indirect: bool):
               .permute(2, 0, 1)) + sigma * eye
     if A.shape[0] > 0:
         Abk = torch.nn.functional.pad(A, (0, npad - n)).reshape(-1, nb, bs)
-        blocks = blocks + ((Abk * rho_vec[:, None, None]).permute(1, 2, 0)
-                           @ Abk.permute(1, 0, 2))
+        blocks = blocks + comm.sum(
+            (Abk * rho_vec[:, None, None]).permute(1, 2, 0)
+            @ Abk.permute(1, 0, 2), mesh)
     Lb, info = torch.linalg.cholesky_ex(blocks)
     bad = (info != 0) | torch.isnan(Lb).any(dim=(1, 2))
     return torch.where(bad[:, None, None], eye, Lb)
 
 
-def _kkt_matvec(sdata: QPData, sigma, rho_vec):
+def _kkt_matvec(sdata: QPData, sigma, rho_vec, mesh=None):
     def mv(v):
         out = sdata.P @ v + sigma * v
         if sdata.A.shape[0] > 0:
-            out = out + sdata.A.mT @ (rho_vec * (sdata.A @ v))
+            out = out + comm.sum(sdata.A.mT @ (rho_vec * (sdata.A @ v)),
+                                 mesh)
         return out
     return mv
 
 
 def init_factor(sdata: QPData, sigma, rho_bar,
-                indirect: bool = False) -> FactorState:
+                indirect: bool = False, mesh=None) -> FactorState:
     """Rho vector and KKT factor at ``rho_bar`` (clipped to
-    [RHO_MIN, RHO_MAX]) for the scaled data."""
+    [RHO_MIN, RHO_MAX]) for the scaled data (this rank's rows under
+    ``mesh``)."""
     with precision_scope():
         P = sdata.P
         loose, eq = constraint_masks(sdata.l, sdata.u)
@@ -334,7 +364,7 @@ def init_factor(sdata: QPData, sigma, rho_bar,
             torch.as_tensor(rho_bar, dtype=P.dtype).to(P.device),
             C.RHO_MIN, C.RHO_MAX)
         rho_vec, rho_inv = build_rho_vec(loose, eq, rho_bar)
-        L = _kkt_precompute(sdata, sigma, rho_vec, indirect)
+        L = _kkt_precompute(sdata, sigma, rho_vec, indirect, mesh)
         return FactorState(L=L, rho_vec=rho_vec, rho_inv=rho_inv,
                            rho_bar=rho_bar)
 
@@ -370,33 +400,35 @@ class Carry(NamedTuple):
     last_ratio: torch.Tensor
 
 
-def split_products(A):
+def split_products(A, mesh=None):
     """The tensorfloat32 iteration's products v ↦ Aᵀv and v ↦ Av as bf16x3
     splits with float32 sums (``ops.shared_iter.split_bf16``/``dot3``,
     the arithmetic of the shared engine's tf32 kernels; the JAX package
-    runs them at ``lax.Precision.HIGH``)."""
+    runs them at ``lax.Precision.HIGH``); Aᵀv summed over ``mesh``."""
     at_pair = split_bf16(A.mT.contiguous())
     a_pair = split_bf16(A)
-    return (lambda v: dot3(at_pair, split_bf16(v), torch.float32),
+    return (lambda v: comm.sum(dot3(at_pair, split_bf16(v), torch.float32),
+                               mesh),
             lambda v: dot3(a_pair, split_bf16(v), torch.float32))
 
 
 def admm_step(sdata: QPData, dyn: DynParams, carry: Carry,
-              indirect: bool = False, tf32=None):
+              indirect: bool = False, tf32=None, mesh=None):
     """One alpha-relaxed ADMM iteration. ``tf32``: None, or the pair of
     products of :func:`split_products`, which then compute the
-    iteration's two A-products; the KKT solve stays in full precision."""
+    iteration's two A-products; the KKT solve stays in full precision.
+    ``mesh``: A, z, y and rho are this rank's rows (Aᵀv summed)."""
     P, q, A, l, u = sdata
     alpha = dyn.alpha
     if tf32 is None:
-        at, a = (lambda v: A.mT @ v), (lambda v: A @ v)
+        at, a = (lambda v: comm.sum(A.mT @ v, mesh)), (lambda v: A @ v)
     else:
         at, a = tf32
     rhs = dyn.sigma * carry.x - q + at(carry.rho_vec * carry.z - carry.y)
     if indirect:
         # solve to cg_tol every iteration, warm-started from x
-        xt = cg_solve(_kkt_matvec(sdata, dyn.sigma, carry.rho_vec), rhs,
-                      carry.x, dyn.cg_tol, dyn.cg_max_iter,
+        xt = cg_solve(_kkt_matvec(sdata, dyn.sigma, carry.rho_vec, mesh),
+                      rhs, carry.x, dyn.cg_tol, dyn.cg_max_iter,
                       M_inv_diag=carry.L)
     else:
         xt = chol_solve(carry.L, rhs)
@@ -421,14 +453,15 @@ _CG_AUTO_CAP = 64
 
 
 def _iterate(sdata, scal, dyn, c: Carry, *, indirect, tf32, loose, eq,
-             check_t, rho_int, snap_t, verbose) -> Carry:
+             check_t, rho_int, snap_t, verbose, mesh) -> Carry:
     """One loop iteration of :func:`solve_scaled` (the JAX package's
     ``body_fun``). Only an iteration that checks termination or adapts rho
     reads the device: its status, rho trigger and tf32 stall flag in one
     transfer."""
     leg_tf32 = tf32 is not None and not c.fine
     x_new, y_new, z_new = admm_step(sdata, dyn, c, indirect=indirect,
-                                    tf32=tf32 if leg_tf32 else None)
+                                    tf32=tf32 if leg_tf32 else None,
+                                    mesh=mesh)
     it = c.it + 1
     do_check = dyn.check_termination > 0 and it % check_t == 0
     do_rho = (dyn.adaptive_rho != 0 and it % rho_int == 0
@@ -442,10 +475,10 @@ def _iterate(sdata, scal, dyn, c: Carry, *, indirect, tf32, loose, eq,
     if do_check:
         status_t, res = termination_status(
             sdata, scal, dyn, x_new, y_new, z_new, x_new - c.x_prev,
-            y_new - c.y_prev, 1.0, accurate=True)
+            y_new - c.y_prev, 1.0, accurate=True, mesh=mesh)
         reads.append(status_t)
     else:
-        res = residual_norms(sdata, scal, dyn, x_new, y_new, z_new)
+        res = residual_norms(sdata, scal, dyn, x_new, y_new, z_new, mesh)
     if do_rho:
         pri_rel = res.pri_res / torch.clamp(res.pri_norm, min=_DIV_GUARD)
         dua_rel = res.dua_res / torch.clamp(res.dua_norm, min=_DIV_GUARD)
@@ -477,7 +510,7 @@ def _iterate(sdata, scal, dyn, c: Carry, *, indirect, tf32, loose, eq,
         if trig and status == C.RUNNING:
             rho_bar = rho_est
             rho_vec, rho_inv = build_rho_vec(loose, eq, rho_est)
-            L = _kkt_precompute(sdata, dyn.sigma, rho_vec, indirect)
+            L = _kkt_precompute(sdata, dyn.sigma, rho_vec, indirect, mesh)
             rho_updates += 1
             dir_new = 1 if up else -1
             if dyn.rho_backoff != 0:
@@ -491,7 +524,7 @@ def _iterate(sdata, scal, dyn, c: Carry, *, indirect, tf32, loose, eq,
         # stalled: the full-precision phase takes over
         fine = bool(vals.pop(0))
 
-    if verbose and do_check:
+    if verbose and do_check and comm.rank(mesh) == 0:
         obj = scal.cinv * (0.5 * torch.dot(x_new, sdata.P @ x_new)
                            + torch.dot(sdata.q, x_new))
         _verbose_row(it, obj, res.pri_res, res.dua_res, rho_bar)
@@ -513,7 +546,7 @@ def _iterate(sdata, scal, dyn, c: Carry, *, indirect, tf32, loose, eq,
 
 def solve_scaled(sdata: QPData, scal: ScalingData, dyn: DynParams,
                  x0, y0, z0, fs: FactorState, linsys: str = "direct",
-                 verbose: bool = False, tf32: bool = False):
+                 verbose: bool = False, tf32: bool = False, mesh=None):
     """Run the ADMM loop on pre-scaled data from the given (scaled) start,
     reusing the factor state ``fs``. Returns (SolveOutput, FactorState);
     the factor state reflects any in-loop rho refactorization.
@@ -527,13 +560,19 @@ def solve_scaled(sdata: QPData, scal: ScalingData, dyn: DynParams,
 
     ``tf32=True``: the iteration's A-products run as bf16x3 splits until
     done or the best residual-to-threshold ratio stops improving at a
-    check; full float32 finishes the solve."""
+    check; full float32 finishes the solve.
+
+    ``mesh``: row sharding (module docstring): A, l, u, y0, z0 and the
+    factor state's rho vectors are this rank's rows; the returned y, z,
+    certificates' rows and rho vectors are too, the rest is replicated.
+    With None nothing changes."""
     with precision_scope():
         return _solve_scaled(sdata, scal, dyn, x0, y0, z0, fs, linsys,
-                             verbose, tf32)
+                             verbose, tf32, mesh)
 
 
-def _solve_scaled(sdata, scal, dyn, x0, y0, z0, fs, linsys, verbose, tf32):
+def _solve_scaled(sdata, scal, dyn, x0, y0, z0, fs, linsys, verbose, tf32,
+                  mesh=None):
     P = sdata.P
     dtype, dev = P.dtype, P.device
     n, m = P.shape[0], sdata.A.shape[0]
@@ -561,10 +600,10 @@ def _solve_scaled(sdata, scal, dyn, x0, y0, z0, fs, linsys, verbose, tf32):
     # the certificate snapshot every 4th check: a one-check window is too
     # short for the float32 certificate tests on stiff problems
     kw = dict(indirect=indirect,
-              tf32=split_products(sdata.A) if tf32 else None,
+              tf32=split_products(sdata.A, mesh) if tf32 else None,
               loose=loose, eq=eq, check_t=check_t,
               rho_int=max(int(dyn.adaptive_rho_interval), 1),
-              snap_t=check_t * 4, verbose=verbose)
+              snap_t=check_t * 4, verbose=verbose, mesh=mesh)
     while c.status == C.RUNNING and c.it < dyn.max_iter:
         c = _iterate(sdata, scal, dyn, c, **kw)
 
@@ -575,7 +614,7 @@ def _solve_scaled(sdata, scal, dyn, x0, y0, z0, fs, linsys, verbose, tf32):
     if status == C.RUNNING:
         approx_status, approx_res = termination_status(
             sdata, scal, dyn, c.x, c.y, c.z, dx_bar, dy_bar,
-            C.INACCURATE_EPS_FACTOR, accurate=False)
+            C.INACCURATE_EPS_FACTOR, accurate=False, mesh=mesh)
         approx_status = int(approx_status)
         allow = dyn.check_termination > 0 and dyn.final_approx != 0
         status = (approx_status if allow and approx_status != C.RUNNING
@@ -584,8 +623,9 @@ def _solve_scaled(sdata, scal, dyn, x0, y0, z0, fs, linsys, verbose, tf32):
 
     # ---- unscale, certificates, objective ----
     _, prim_cert = primal_infeasibility(sdata, scal, dy_bar,
-                                        dyn.eps_prim_inf)
-    _, dual_cert = dual_infeasibility(sdata, scal, dx_bar, dyn.eps_dual_inf)
+                                        dyn.eps_prim_inf, mesh)
+    _, dual_cert = dual_infeasibility(sdata, scal, dx_bar, dyn.eps_dual_inf,
+                                      mesh)
     if m == 0:
         prim_cert = torch.zeros((0,), dtype=dtype, device=dev)
     obj = scal.cinv * (0.5 * torch.dot(c.x, P @ c.x)
@@ -609,10 +649,12 @@ def _solve_scaled(sdata, scal, dyn, x0, y0, z0, fs, linsys, verbose, tf32):
 
 
 def solve(data: QPData, dyn: DynParams, scaling_iters=10, x0=None, y0=None,
-          linsys: str = "direct") -> SolveOutput:
+          linsys: str = "direct", mesh=None) -> SolveOutput:
     """Functional one-shot solve of one problem (tensors on one device):
-    scale, factor, :func:`solve_scaled`. ``x0``, ``y0`` unscaled."""
-    sdata, scal = scale_problem(data, scaling_iters)
+    scale, factor, :func:`solve_scaled`. ``x0``, ``y0`` unscaled.
+    ``mesh``: A, l, u and y0 are this rank's rows of a row-sharded
+    problem."""
+    sdata, scal = scale_problem(data, scaling_iters, mesh)
     P = sdata.P
     n, m = P.shape[0], sdata.A.shape[0]
     xb = (torch.zeros((n,), dtype=P.dtype, device=P.device) if x0 is None
@@ -622,8 +664,9 @@ def solve(data: QPData, dyn: DynParams, scaling_iters=10, x0=None, y0=None,
     with precision_scope():
         zb = sdata.A @ xb
     fs = init_factor(sdata, dyn.sigma, dyn.rho_bar,
-                     indirect=linsys == "indirect")
-    out, _ = solve_scaled(sdata, scal, dyn, xb, yb, zb, fs, linsys=linsys)
+                     indirect=linsys == "indirect", mesh=mesh)
+    out, _ = solve_scaled(sdata, scal, dyn, xb, yb, zb, fs, linsys=linsys,
+                          mesh=mesh)
     return out
 
 

@@ -14,6 +14,8 @@ import functools
 
 import torch
 
+from .parallel import comm
+
 
 @contextlib.contextmanager
 def precision_scope():
@@ -77,14 +79,16 @@ def chol_solve(L, b):
     return x[..., 0] if vec else x
 
 
-def reduced_kkt(P, A, sigma, rho_vec):
+def reduced_kkt(P, A, sigma, rho_vec, mesh=None):
     """The reduced KKT matrix R = P + sigma*I + Aᵀ diag(rho) A (n, n),
     symmetrized: the n×n positive-definite reduction of the quasi-definite
-    KKT system [P+σI, Aᵀ; A, -diag(ρ)⁻¹]."""
+    KKT system [P+σI, Aᵀ; A, -diag(ρ)⁻¹]. Under ``mesh`` (row sharding) A
+    and rho are this rank's rows and AᵀρA is summed over the ranks, so R
+    is the same on every rank."""
     n = P.shape[-1]
     R = P + sigma * torch.eye(n, dtype=P.dtype, device=P.device)
     if A.shape[-2] > 0:
-        R = R + (A.mT * rho_vec[..., None, :]) @ A
+        R = R + comm.sum((A.mT * rho_vec[..., None, :]) @ A, mesh)
     return sym(R)
 
 

@@ -25,6 +25,14 @@ no batch axis, sparse operators (``sparse_ops.SparseOp`` or
 P̄ + δI + δ⁻¹Mᵀ M is applied as an operator and solved by CG to 1e-10 in at
 most 400 iterations, preconditioned by its Jacobi diagonal
 P̄.diag + δ + δ⁻¹(Ā.sqT @ mask).
+
+``mesh``: row sharding (``ShardedQP``-style, the sparse engine's
+``SparseModel(mesh)``): A, l, u and ybar are this rank's rows and x is
+replicated. Every term that couples rows is a collective of
+:mod:`osqp_tpu_torch.parallel.comm` — MᵀM and Aᵀ products SUM, the
+row maxima MAX, the repair's pivot row a global first argmax, the
+acceptance tests ALL — so every rank takes the same pivots and keeps its
+rows of the polished y and z.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 
 from .core import _mtv, _mv, residual_norms
 from .linalg import cg_solve, chol_factor, chol_solve, sym, with_precision
+from .parallel import comm
 from .types import DynParams, QPData, ScalingData
 
 
@@ -59,15 +68,39 @@ _POLISH_ROUNDS = 4
 _CG_TOL, _CG_MAX_ITER = 1e-10, 400
 
 
+def _first_max(v, mesh):
+    """One-hot (..., m) mask of ``torch.argmax(v, -1)``, the first maximal
+    index, over every rank's rows under ``mesh`` (rows in rank order)."""
+    k = torch.argmax(v, dim=-1, keepdim=True)
+    idx = torch.arange(v.shape[-1], device=v.device)
+    if mesh is None:
+        return idx == k
+    vmax = torch.gather(v, -1, k)
+    gmax = comm.max(vmax, mesh)
+    off = comm.rank(mesh) * v.shape[-1]
+    top = (vmax == gmax) | (torch.isnan(vmax) & torch.isnan(gmax))
+    gk = comm.min(torch.where(top, k + off, torch.iinfo(k.dtype).max),
+                  mesh)
+    return idx + off == gk
+
+
+def _at(v, hot, mesh):
+    """(..., 1): v at the row of the one-hot ``hot`` (on whichever rank
+    holds it); exact, the other rows add zeros."""
+    return comm.sum(torch.sum(torch.where(hot, v, 0.0), dim=-1,
+                              keepdim=True), mesh)
+
+
 @with_precision
 def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
            refine_iters, ybar, admm_pri_res, admm_dua_res,
-           indirect: bool = False) -> PolishOutput:
+           indirect: bool = False, mesh=None) -> PolishOutput:
     """Polish the (scaled) ADMM solutions: ``sdata``/``scal`` as the
     per-lane engine stacks them (or one problem's), ``ybar`` (..., m) the
     scaled dual iterate, ``admm_pri_res``/``admm_dua_res`` (...,) the ADMM
     residuals to beat. ``indirect=True``: the matrix-free polish of one
-    problem on sparse operators (module docstring)."""
+    problem on sparse operators (module docstring). ``mesh``: the
+    constraint rows are this rank's (module docstring)."""
     P, q, A, l, u = sdata
     if indirect and isinstance(P, torch.Tensor):
         raise ValueError("the matrix-free polish (indirect=True) takes one "
@@ -90,7 +123,7 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
 
         def t(v):
             # Aᵀ(mask ∘ v), the masked-active-rows transpose product
-            return _mtv(A, mask * v)
+            return _mtv(A, mask * v, mesh)
 
         if indirect:
             def R_matvec(v):
@@ -100,7 +133,7 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
                 return out
             d = P.diag + delta
             if m > 0:
-                d = d + (A.sqT @ mask) / delta
+                d = d + comm.sum(A.sqT @ mask, mesh) / delta
             M_inv = 1.0 / d
 
             def solve_R(r):
@@ -110,7 +143,7 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
             R = P + delta * eye
             if m > 0:
                 Ma = mask[..., :, None] * A
-                R = R + (Ma.mT @ Ma) / delta
+                R = R + comm.sum(Ma.mT @ Ma, mesh) / delta
             Lp = chol_factor(sym(R))
 
             def solve_R(r):
@@ -144,24 +177,23 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
         row. ``torch.argmax`` picks the first maximal index, as
         ``jnp.argmax`` does."""
         Ax = _mv(A, x)
-        ymax = torch.amax(torch.abs(y), dim=-1)
-        stol = tol0 * (1.0 + ymax)
-        ftol = tol0 * (1.0 + torch.maximum(torch.amax(torch.abs(Ax), dim=-1),
-                                           ymax))
         ws = (torch.where(low, torch.clamp(y, min=0.0), 0.0)
               + torch.where(upp, torch.clamp(-y, min=0.0), 0.0))
         inact = ~(low | upp)
         viol_l = torch.where(inact, l - Ax, -torch.inf)
         viol_u = torch.where(inact, Ax - u, -torch.inf)
         viol = torch.maximum(viol_l, viol_u)
-        do_drop = torch.amax(ws, dim=-1) > stol
-        do_add = (~do_drop) & (torch.amax(viol, dim=-1) > ftol)
-        kd = torch.argmax(ws, dim=-1, keepdim=True)
-        ka = torch.argmax(viol, dim=-1, keepdim=True)
-        idx = torch.arange(m, device=dev)
-        hot_d = idx == kd
-        hot_a = idx == ka
-        add_low = torch.gather(viol_l, -1, ka) >= torch.gather(viol_u, -1, ka)
+        ymax, axmax, wsmax, vmax = comm.max(torch.stack([
+            torch.amax(torch.abs(y), dim=-1),
+            torch.amax(torch.abs(Ax), dim=-1),
+            torch.amax(ws, dim=-1), torch.amax(viol, dim=-1)]), mesh)
+        stol = tol0 * (1.0 + ymax)
+        ftol = tol0 * (1.0 + torch.maximum(axmax, ymax))
+        do_drop = wsmax > stol
+        do_add = (~do_drop) & (vmax > ftol)
+        hot_d = _first_max(ws, mesh)
+        hot_a = _first_max(viol, mesh)
+        add_low = _at(viol_l, hot_a, mesh) >= _at(viol_u, hot_a, mesh)
         drop, add = do_drop[..., None], do_add[..., None]
         low2 = torch.where(drop, low & ~hot_d,
                            torch.where(add & add_low, low | hot_a, low))
@@ -184,8 +216,9 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
             x, y = torch.where(c, x2, x), torch.where(c, y2, y)
 
     z = torch.clamp(_mv(A, x), l, u)
-    res = residual_norms(sdata, scal, dyn, x, y, z)
-    finite = (torch.isfinite(x).all(dim=-1) & torch.isfinite(y).all(dim=-1)
+    res = residual_norms(sdata, scal, dyn, x, y, z, mesh)
+    finite = (torch.isfinite(x).all(dim=-1)
+              & comm.all(torch.isfinite(y).all(dim=-1), mesh)
               & torch.isfinite(res.pri_res) & torch.isfinite(res.dua_res))
     # each residual strictly improves on the ADMM one or is essentially
     # exact, and the polished duals are sign-consistent with the final
@@ -195,9 +228,11 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
     better_d = res.dua_res < torch.clamp(admm_dua_res, min=tiny)
     success = finite & better_p & better_d
     if m > 0:
-        stol = (tol0 * (1.0 + torch.amax(torch.abs(y), dim=-1)))[..., None]
-        success = (success & torch.all(~low | (y <= stol), dim=-1)
-                   & torch.all(~upp | (y >= -stol), dim=-1))
+        ymax = comm.max(torch.amax(torch.abs(y), dim=-1), mesh)
+        stol = (tol0 * (1.0 + ymax))[..., None]
+        success = success & comm.all(
+            torch.all(~low | (y <= stol), dim=-1)
+            & torch.all(~upp | (y >= -stol), dim=-1), mesh)
 
     obj = scal.cinv * (0.5 * torch.sum(x * _mv(P, x), dim=-1)
                        + torch.sum(q * x, dim=-1))

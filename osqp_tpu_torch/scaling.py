@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .constants import MAX_SCALING, MIN_SCALING
+from .parallel import comm
 from .types import QPData, ScalingData
 
 
@@ -31,9 +32,12 @@ def _colmax(M):
     return torch.amax(torch.abs(M), dim=-2)
 
 
-def ruiz_equilibrate(data: QPData, n_iters: int) -> tuple[QPData, ScalingData]:
+def ruiz_equilibrate(data: QPData, n_iters: int,
+                     mesh=None) -> tuple[QPData, ScalingData]:
     """Equilibrate ``data`` (leading batch axes allowed) with ``n_iters``
-    Ruiz rounds; 0 rounds leave the data as it is with unit scalings."""
+    Ruiz rounds; 0 rounds leave the data as it is with unit scalings.
+    ``mesh``: A, l, u are this rank's rows of a row-sharded problem; A's
+    column norms are the max over the ranks, its row norms stay local."""
     P, q, A, l, u = data
     dtype, dev = P.dtype, P.device
     batch = P.shape[:-2]
@@ -44,7 +48,7 @@ def ruiz_equilibrate(data: QPData, n_iters: int) -> tuple[QPData, ScalingData]:
     for _ in range(int(n_iters)):
         # column norms of the KKT-form matrix [P A'; A 0]
         delta_d = 1.0 / torch.sqrt(_limit_scaling(
-            torch.maximum(_colmax(P), _colmax(A))))
+            torch.maximum(_colmax(P), comm.max(_colmax(A), mesh))))
         if m > 0:
             delta_e = 1.0 / torch.sqrt(_limit_scaling(
                 torch.amax(torch.abs(A), dim=-1)))

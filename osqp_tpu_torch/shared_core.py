@@ -12,6 +12,15 @@ The JAX package runs the leg loop as ``lax.while_loop`` and its branches as
 ``if``s on values read back from the device, a few small reads per leg.
 Constraint classification (loose/eq rows for rho boosting) aggregates over
 the batch: a row is loose/eq only if it is so in every lane.
+
+Over a mesh (``mesh=``, lanes sharded, P and A replicated) every batch
+reduction is a collective of :mod:`osqp_tpu_torch.parallel.comm`: the
+scaling's max |q|, the row classification, the rho estimate's geometric
+mean (gathered exactly and summed in the original lane order, so a
+sharded solve takes the unsharded solve's rho decisions bit for bit), the
+precision switch's closeness ratio and the loop's running count. A rank
+whose lanes have all finished keeps joining them until the global count
+is 0; lane compaction and the final classification stay local.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from .linalg import inf_norm
 from .linalg import chol_factor, with_precision
 from .ops import shared_iter
 from .ops.solve_kernel import admm_solve_shared, pick_group
+from .parallel import comm
 from .scaling import _limit_scaling
 from .types import DynParams, SolveOutput
 
@@ -239,13 +249,41 @@ def _init_factor(P, A, sigma, loose, eq, factor0, rho_dyn):
     return rho_vec, rho_inv, Rinv, rho0
 
 
-def _classify_rows(lb, ub):
-    """Batch-aggregated (loose, eq) row masks for the rho vector."""
+def _classify_rows(lb, ub, mesh=None):
+    """Batch-aggregated (loose, eq) row masks for the rho vector, over
+    every rank's lanes under ``mesh``."""
     loose_b = (lb <= -C.INFTY_THRESH) & (ub >= C.INFTY_THRESH)
     eq_b = (~loose_b) & (ub - lb < C.RHO_TOL)
-    loose = torch.all(loose_b, dim=0)
-    eq = torch.all(eq_b, dim=0) & ~loose
-    return loose, eq
+    both = comm.all(torch.stack([torch.all(loose_b, dim=0),
+                                 torch.all(eq_b, dim=0)]), mesh)
+    loose = both[0]
+    return loose, both[1] & ~loose
+
+
+def rho_aggregate(est_lane, still, order, rho_bar, mesh=None):
+    """The shared rho estimate: the geometric mean of the per-lane
+    estimates over the still-running lanes of the whole batch, clipped;
+    ``rho_bar`` when no lane runs. Returns (estimate, any lane running).
+
+    The lanes' values are put back in their original order (``order``:
+    the original index of each packed slot, or None) and, under ``mesh``,
+    gathered exactly from every rank, so the sum runs over the same
+    vector in the same order whatever the packing or the sharding."""
+    if order is not None:
+        v = torch.empty_like(est_lane)
+        v[order] = est_lane
+        s = torch.empty_like(still)
+        s[order] = still
+        est_lane, still = v, s
+    est_lane = comm.gather(est_lane, mesh)
+    still = comm.gather(still, mesh)
+    w = still.to(est_lane.dtype)
+    cnt = torch.clamp(torch.sum(w), min=1.0)
+    est = torch.exp(torch.sum(w * torch.log(est_lane)) / cnt)
+    est = torch.clamp(est, C.RHO_MIN, C.RHO_MAX)
+    any_still = torch.any(still)
+    # no lane running: keep the rho in use, not exp(0) = 1
+    return torch.where(any_still, est, rho_bar), any_still
 
 
 def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
@@ -320,7 +358,7 @@ def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
 def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
                        x0, y0, z0, group=None, factor0: FactorCache = None,
                        with_factor: bool = False, lowp: bool = False,
-                       tf32: bool = False):
+                       tf32: bool = False, mesh=None):
     """Adaptive-rho batched solve with shared (scaled) P, A. Per-lane
     qb/lb/ub are scaled; x0/y0/z0 are scaled starts.
 
@@ -344,7 +382,11 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     or a chunk stalls, then in the working precision. Every chunk is
     checked in full precision from the actual iterates; before the switch
     only Solved and Non_convex may be declared (δx/δy of a bf16 chunk are
-    too noisy for certificates). ``lowp`` supersedes ``tf32``."""
+    too noisy for certificates). ``lowp`` supersedes ``tf32``.
+
+    ``mesh``: this rank's lanes of a batch sharded over the mesh; the
+    batch reductions are collectives, so every rank takes the same rho,
+    precision and loop decisions (module docstring)."""
     tf32 = tf32 and not lowp
     dtype, dev = P.dtype, P.device
     B, n = x0.shape
@@ -356,7 +398,7 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     compact = B >= 2 * G  # pointless below two groups
     inf = float("inf")
 
-    loose, eq = _classify_rows(lb, ub)
+    loose, eq = _classify_rows(lb, ub, mesh)
     rho_vec, rho_inv, Rinv, rho_bar = _init_factor(
         P, A, dyn.sigma, loose, eq, factor0, dyn.rho_bar)
     chunk = max(dyn.check_termination, 1)
@@ -381,7 +423,7 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     rho_dir = dyn.rho_dir0
     rho_gap = dyn.rho_gap0 if dyn.rho_gap0 > 0 else rho_int
     next_rho = dyn.next_rho0
-    n_running = B
+    n_running = B * comm.size(mesh)   # over the whole batch
 
     while n_running > 0 and it < dyn.max_iter:
         low = not fine             # this leg or chunk in reduced precision
@@ -449,17 +491,12 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
                                    C.RHO_MIN, C.RHO_MAX)
             est_lane = torch.where(torch.isfinite(est_lane), est_lane,
                                    rho_bar)
-            # geometric mean over still-running lanes
-            w = still.to(dtype)
-            cnt = torch.clamp(torch.sum(w), min=1.0)
-            est = torch.exp(torch.sum(w * torch.log(est_lane)) / cnt)
-            est = torch.clamp(est, C.RHO_MIN, C.RHO_MAX)
-            any_still = bool(still.any())
-            if not any_still:
-                est = rho_bar  # keep the rho in use, not exp(0) = 1
+            est, any_t = rho_aggregate(est_lane, still,
+                                       order if packed else None, rho_bar,
+                                       mesh)
             tol = dyn.adaptive_rho_tolerance
-            hi, lo, up = torch.stack(
-                [est > rho_bar * tol, est < rho_bar / tol,
+            any_still, hi, lo, up = torch.stack(
+                [any_t, est > rho_bar * tol, est < rho_bar / tol,
                  est > rho_bar]).tolist()
             trig = (any_still and (dyn.rho_backoff == 0 or it >= next_rho)
                     and (hi or lo))
@@ -486,20 +523,22 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
                                 min=_DIV_GUARD)
             ratio = torch.maximum(res.pri_res / den_p, res.dua_res / den_d)
             ratio = torch.where(still, ratio, inf)
-            rmin = torch.amin(ratio)
+            rmin = comm.min(torch.amin(ratio), mesh)
             fine = bool((rmin > _LOWP_STALL_FRAC * last_ratio)
                         | (lowp & (rmin < _LOWP_SWITCH_RATIO)))
             last_ratio = torch.minimum(rmin, last_ratio)
 
         pri_res = torch.where(live, res.pri_res, pri_res)
         dua_res = torch.where(live, res.dua_res, dua_res)
-        n_running = int(still.sum())
+        n_here = still.sum()
+        n_local, n_running = torch.stack(
+            [n_here, comm.sum(n_here, mesh)]).tolist()
 
-        # pack running lanes into the prefix (stable, so packed prefixes
-        # barely move) when that frees at least one more group; not when
-        # the whole batch just finished, since the loop exits anyway
-        if (compact and 0 < n_running
-                and -(-n_running // G) < -(-nlive // G)):
+        # pack this rank's running lanes into the prefix (stable, so packed
+        # prefixes barely move) when that frees at least one more group;
+        # not when its lanes just finished, since they stay put
+        if (compact and 0 < n_local
+                and -(-n_local // G) < -(-nlive // G)):
             perm = torch.argsort((~still).to(torch.int32), stable=True)
             x, y, z = x[perm], y[perm], z[perm]
             x_prev, y_prev = x_prev[perm], y_prev[perm]
@@ -507,7 +546,7 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
             pri_res, dua_res = pri_res[perm], dua_res[perm]
             qc, lc, uc = qc[perm], lc[perm], uc[perm]
             order = order[perm]
-            nlive = n_running
+            nlive = n_local
             packed = True
 
     if packed:
@@ -544,15 +583,17 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
 def solve_batch_shared_fixed(P, A, qb, lb, ub, scal: SharedScaling,
                              dyn: DynParams, x0, y0, z0, group=None,
                              factor0: FactorCache = None,
-                             with_factor: bool = False, tf32: bool = False):
+                             with_factor: bool = False, tf32: bool = False,
+                             mesh=None):
     """Fixed-rho shared-structure solve: the whole loop is one leg-kernel
     call with full classification every check_termination iterations.
     Used when adaptive_rho is off (no mid-solve refactorization). With
     ``tf32`` the whole solve runs the split products: there is no host loop
-    between legs to fall back to float32."""
+    between legs to fall back to float32. Over ``mesh`` only the row
+    classification is a collective: the lanes are otherwise independent."""
     B = x0.shape[0]
     dev = x0.device
-    loose, eq = _classify_rows(lb, ub)
+    loose, eq = _classify_rows(lb, ub, mesh)
     rho_vec, rho_inv, Rinv, rho0 = _init_factor(
         P, A, dyn.sigma, loose, eq, factor0, dyn.rho_bar)
     Einv_eff, Dinv_eff, cinv_eff = _effective(scal, dyn)
@@ -583,15 +624,17 @@ def solve_batch_shared_fixed(P, A, qb, lb, ub, scal: SharedScaling,
 
 def solve_shared(P, A, q, l, u, dyn: DynParams, scaling_iters, x0, y0,
                  group=None, adaptive: bool = True, lowp: bool = False,
-                 tf32: bool = False) -> SolveOutput:
+                 tf32: bool = False, mesh=None) -> SolveOutput:
     """One-shot shared-structure solve: scale the shared data once, then
     solve the batch. P (n,n), A (m,n) shared; q (B,n), l/u (B,m) per lane;
     x0/y0 unscaled. ``adaptive=False`` selects the fixed-rho single-leg
     path; ``lowp`` (mixed precision) applies to the adaptive path only, as
-    in the JAX package."""
+    in the JAX package. ``mesh``: q, l, u, x0, y0 are this rank's lanes of
+    a batch sharded over the mesh; the scaling sees every rank's max |q|
+    (P and A, hence the scaling, stay the same on every rank)."""
     l = torch.clamp(l, -C.OSQP_INFTY, C.OSQP_INFTY)
     u = torch.clamp(u, -C.OSQP_INFTY, C.OSQP_INFTY)
-    q_absmax = torch.amax(torch.abs(q), dim=0)
+    q_absmax = comm.max(torch.amax(torch.abs(q), dim=0), mesh)
     Pb, Ab, scal = shared_ruiz(P, A, q_absmax, scaling_iters)
     qb = scal.c * scal.D * q
     lb = scal.E * l
@@ -601,6 +644,7 @@ def solve_shared(P, A, q, l, u, dyn: DynParams, scaling_iters, x0, y0,
     zb = xb @ Ab.T
     if not adaptive:
         return solve_batch_shared_fixed(Pb, Ab, qb, lb, ub, scal, dyn,
-                                        xb, yb, zb, group=group, tf32=tf32)
+                                        xb, yb, zb, group=group, tf32=tf32,
+                                        mesh=mesh)
     return solve_batch_shared(Pb, Ab, qb, lb, ub, scal, dyn, xb, yb, zb,
-                              group=group, lowp=lowp, tf32=tf32)
+                              group=group, lowp=lowp, tf32=tf32, mesh=mesh)

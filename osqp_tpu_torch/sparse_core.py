@@ -19,7 +19,17 @@ a warning, as in the JAX package.
 A model runs on the GPU unless the caller passes ``device="cpu"``, and
 raises when no GPU is present. A problem runs on the device the caller
 chose: the JAX package's extreme-sparsity host route (a placement measured
-on a TPU) is not ported. ``mesh`` (row sharding) is refused.
+on a TPU) is not ported.
+
+``mesh`` shards the constraint rows over the ranks of a process group (one
+process a rank, every rank passing the global problem): each rank keeps
+its rows of the ELL A (``sparse_format="padded"``, m divisible by the
+mesh size), Aᵀv runs through the transpose table of those rows and is
+summed over the ranks, and the per-solve Ruiz takes the max of A's column
+norms over them; P, q and x are replicated. A mesh forces the matrix-free
+route (no dense and no banded route), as in the JAX package. The polish
+runs on the rank's rows as well, its row couplings collectives
+(:mod:`osqp_tpu_torch.polish`), so no rank holds the whole of A.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from .band import BandedModel
 from .core import (dyn_from_settings, init_factor, resolve_cg_cap,
                    resolve_device, scale_problem, solve_scaled, torch_dtype)
 from .linalg import precision_scope
+from .parallel import comm
 from .padded_sparse import (PaddedOp, padded_col_max_abs, padded_op_from_coo,
                             padded_row_max_abs, scale_padded_op)
 from .polish import polish as _polish_fn
@@ -64,11 +75,12 @@ def _scale_op(op, row_scale, col_scale, extra=1.0):
     return scale_sparse_op(op, row_scale, col_scale, extra)
 
 
-def sparse_ruiz(P, q, A, l, u, n_iters):
+def sparse_ruiz(P, q, A, l, u, n_iters, mesh=None):
     """Modified Ruiz equilibration on sparse operators (the algorithm of
     ``scaling.ruiz_equilibrate``, norms by segment reductions: an empty
     column of a CSR operator has norm -inf, of an ELL one 0, as in the
-    JAX package)."""
+    JAX package). ``mesh``: A, l, u are this rank's rows; A's column
+    norms are the max over the ranks."""
     dtype, dev = q.dtype, q.device
     n = P.shape[0]
     m = A.shape[0]
@@ -79,7 +91,7 @@ def sparse_ruiz(P, q, A, l, u, n_iters):
     D, E, c = ones(n), ones(m), ones()
     for _ in range(int(n_iters)):
         p_col = _col_norms(P, n)
-        a_col = (_col_norms(A, n) if m
+        a_col = (comm.max(_col_norms(A, n), mesh) if m
                  else torch.zeros((n,), dtype=dtype, device=dev))
         dd = 1.0 / torch.sqrt(_limit_scaling(torch.maximum(p_col, a_col)))
         de = (1.0 / torch.sqrt(_limit_scaling(_row_norms(A, m))) if m
@@ -126,22 +138,38 @@ def _merge_polish(out, pol):
 
 
 def _solve_sparse(P, q, A, l, u, dyn, scaling_iters, x0, y0,
-                  do_polish=False, delta=1e-6, refine_iters=3):
+                  do_polish=False, delta=1e-6, refine_iters=3, mesh=None):
     """Scale, factor (Jacobi) and run the matrix-free ADMM solve from the
-    unscaled start (x0, y0); polish when asked."""
+    unscaled start (x0, y0); polish when asked.
+
+    ``mesh``: A, l, u, y0 are this rank's rows (module docstring); so are
+    the polish's, whose row couplings are collectives too."""
     l = torch.clamp(l, -C.OSQP_INFTY, C.OSQP_INFTY)
     u = torch.clamp(u, -C.OSQP_INFTY, C.OSQP_INFTY)
-    Pb, qb, Ab, lb, ub, scal = sparse_ruiz(P, q, A, l, u, scaling_iters)
+    Pb, qb, Ab, lb, ub, scal = sparse_ruiz(P, q, A, l, u, scaling_iters,
+                                           mesh)
     sdata = QPData(P=Pb, q=qb, A=Ab, l=lb, u=ub)
     xb = scal.Dinv * x0
     yb = scal.c * scal.Einv * y0
     zb = Ab @ xb
-    fs = init_factor(sdata, dyn.sigma, dyn.rho_bar, indirect=True)
-    out, _ = solve_scaled(sdata, scal, dyn, xb, yb, zb, fs, linsys="indirect")
+    fs = init_factor(sdata, dyn.sigma, dyn.rho_bar, indirect=True,
+                     mesh=mesh)
+    out, _ = solve_scaled(sdata, scal, dyn, xb, yb, zb, fs, linsys="indirect",
+                          mesh=mesh)
     if not do_polish:
         return out
-    n_, m_ = P.shape[0], A.shape[0]
-    if n_ <= _DENSE_ROUTE_N and m_ <= 4 * _DENSE_ROUTE_N:
+    pol = _polish_sparse(sdata, scal, dyn, delta, refine_iters, out.ybar,
+                         out, mesh)
+    return _merge_polish(out, pol)
+
+
+def _polish_sparse(sdata, scal, dyn, delta, refine_iters, ybar, out,
+                   mesh=None):
+    """The polish of the sparse route (``sdata``: scaled; this rank's rows
+    under ``mesh``)."""
+    n_, m_ = sdata.P.shape[0], sdata.A.shape[0]
+    Pb, qb, Ab, lb, ub = sdata
+    if n_ <= _DENSE_ROUTE_N and m_ * comm.size(mesh) <= 4 * _DENSE_ROUTE_N:
         # Polish is a one-shot reduced-KKT solve: below the dense bound it
         # densifies and factors exactly, even in forced matrix-free mode
         # (the CG polish cannot solve the delta-regularized vertex system
@@ -149,12 +177,11 @@ def _solve_sparse(P, q, A, l, u, dyn, scaling_iters, x0, y0,
         # preconditioner); past the bound the CG polish remains.
         sdata_d = QPData(P=_densify(Pb, (n_, n_)), q=qb,
                          A=_densify(Ab, (m_, n_)), l=lb, u=ub)
-        pol = _polish_fn(sdata_d, scal, dyn, delta, refine_iters, out.ybar,
-                         out.pri_res, out.dua_res, indirect=False)
-    else:
-        pol = _polish_fn(sdata, scal, dyn, delta, refine_iters, out.ybar,
-                         out.pri_res, out.dua_res, indirect=True)
-    return _merge_polish(out, pol)
+        return _polish_fn(sdata_d, scal, dyn, delta, refine_iters, ybar,
+                          out.pri_res, out.dua_res, indirect=False,
+                          mesh=mesh)
+    return _polish_fn(sdata, scal, dyn, delta, refine_iters, ybar,
+                      out.pri_res, out.dua_res, indirect=True, mesh=mesh)
 
 
 def _solve_dense(Pd, q, Ad, l, u, dyn, scaling_iters, x0, y0,
@@ -228,14 +255,20 @@ class SparseModel:
     its settings, updates and warm starts are forwarded to it.
 
     ``device``: "cuda" unless given; raises when CUDA is not available
-    (pass ``device="cpu"`` to run on the CPU). ``mesh`` is refused."""
+    (pass ``device="cpu"`` to run on the CPU).
 
-    def __init__(self, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SparseModel(mesh=...) row sharding is not ported yet "
-                "(ROADMAP queue 1 item 11, parallel)")
-        self.device = resolve_device(device)
+    ``mesh``: the constraint rows are sharded over the mesh's ranks
+    (module docstring); every rank passes the global problem and vectors
+    (setup, update, warm_start), and a solve's ``Results`` hold x
+    replicated and this rank's rows of y and of the primal certificate.
+    The device is the mesh's unless given. ``axis_name`` picks the axis
+    of a multi-axis mesh that the rows split over (the other axes hold
+    replicas); a 1-D mesh is used whatever its axis is named."""
+
+    def __init__(self, mesh=None, device=None, axis_name: str = "r"):
+        self._mesh = mesh = comm.axis(mesh, axis_name)
+        self.device = (resolve_device(device) if mesh is None
+                       else comm.check_device(mesh, device))
         self._is_setup = False
 
     def _sync(self):
@@ -245,6 +278,10 @@ class SparseModel:
     def _t(self, v):
         return torch.as_tensor(np.asarray(v, dtype=np.float64),
                                dtype=self._tdtype, device=self.device)
+
+    def _trows(self, v):
+        """An m-vector given globally, as this rank's rows."""
+        return self._t(np.asarray(v, dtype=np.float64)[self._rows])
 
     def setup(self, P=None, q=None, A=None, l=None, u=None, **settings):
         """Ingest scipy.sparse P (full symmetric or its upper triangle) and
@@ -270,6 +307,16 @@ class SparseModel:
             raise ValueError("SparseModel requires scipy.sparse P and A")
         n = P.shape[0]
         m = A.shape[0]
+        if self._mesh is not None:
+            if fmt != "padded":
+                raise ValueError(
+                    "mesh sharding requires sparse_format='padded'")
+            self._rows = comm.block(self._mesh, m, "m")
+            # the matrix-free route only: no dense and no banded route
+            explicit_indirect = True
+            want_banded = False
+        else:
+            self._rows = slice(0, m)
         # either full-symmetric P or its upper triangle (the reference's
         # triu convention)
         Pu = _sp.triu(_sp.csc_matrix(P))
@@ -315,10 +362,10 @@ class SparseModel:
         if np.any(np.maximum(l, -C.OSQP_INFTY) > np.minimum(u, C.OSQP_INFTY)):
             raise ValueError("l must be lower than or equal to u")
         self._q = self._t(q)
-        self._l = self._t(l)
-        self._u = self._t(u)
+        self._l = self._trows(l)
+        self._u = self._trows(u)
         self._x0 = self._t(np.zeros(n))
-        self._y0 = self._t(np.zeros(m))
+        self._y0 = self._trows(np.zeros(m))
         self._sync()
         self._is_setup = True
         return self
@@ -347,10 +394,11 @@ class SparseModel:
         make = (padded_op_from_coo if self._fmt == "padded"
                 else sparse_op_from_coo)
         Pc = _sp.coo_matrix(Psym)
-        Ac = _sp.coo_matrix(self._A_csc)
+        Ac = _sp.coo_matrix(self._A_csc if self._mesh is None
+                            else self._A_csc.tocsr()[self._rows])
         self._P_op = make(Pc.row, Pc.col, Pc.data, (n, n), self._tdtype,
                           self.device)
-        self._A_op = make(Ac.row, Ac.col, Ac.data, (m, n), self._tdtype,
+        self._A_op = make(Ac.row, Ac.col, Ac.data, Ac.shape, self._tdtype,
                           self.device)
 
     def update_settings(self, **kwargs):
@@ -370,7 +418,7 @@ class SparseModel:
         if self._band is not None:
             self._band.warm_start(x=x, y=y)
         self._x0 = self._t(x if x is not None else np.zeros(self.n))
-        self._y0 = self._t(y if y is not None else np.zeros(self.m))
+        self._y0 = self._trows(y if y is not None else np.zeros(self.m))
 
     def _update_values(self, csc, vals, idx, name):
         """Value-only update of ``csc`` in its nnz order, optionally at the
@@ -425,9 +473,9 @@ class SparseModel:
                 raise ValueError(f"q must have length n = {self.n}")
             self._q = self._t(q)
         if l is not None:
-            self._l = self._t(l)
+            self._l = self._trows(l)
         if u is not None:
-            self._u = self._t(u)
+            self._u = self._trows(u)
         if self._band is not None and (q is not None or l is not None
                                        or u is not None):
             self._band.update(q=q, l=l, u=u)
@@ -442,10 +490,10 @@ class SparseModel:
                                 do_polish=polish, delta=delta,
                                 refine_iters=s.polish_refine_iter,
                                 tf32=s.tf32())
-        return _solve_sparse(self._P_op, self._q, self._A_op, self._l,
-                             self._u, dyn, s.scaling, x0, y0,
-                             do_polish=polish, delta=delta,
-                             refine_iters=s.polish_refine_iter)
+        return _solve_sparse(
+            self._P_op, self._q, self._A_op, self._l, self._u, dyn,
+            s.scaling, x0, y0, do_polish=polish, delta=delta,
+            refine_iters=s.polish_refine_iter, mesh=self._mesh)
 
     def solve(self) -> Results:
         """Run the ADMM solve (and the polish when asked); package Results
@@ -476,7 +524,7 @@ class SparseModel:
             self._x0 = out.x
             self._y0 = out.y
         nan_n = np.full(self.n, np.nan)
-        nan_m = np.full(self.m, np.nan)
+        nan_m = np.full(self._l.shape[0], np.nan)
 
         def host(v):
             return v.double().cpu().numpy()
@@ -499,7 +547,11 @@ class SparseModel:
         previous chunk's unscaled (x, y) with the rho back-off state
         resumed, as the JAX package's driver. Returns (out, forced status
         or None): Time_limit_reached when the clock runs out,
-        Interrupted on KeyboardInterrupt after the first chunk."""
+        Interrupted on KeyboardInterrupt after the first chunk.
+
+        Under a mesh the ranks agree after every chunk on the next chunk's
+        size (the smallest), the clock and an interrupt (SIGINT deferred
+        to the chunk's end); the status is replicated already."""
         s = self.settings
         chunk = 1
         budget_s = max(float(s.time_limit) / 4.0, 1.0)
@@ -507,36 +559,44 @@ class SparseModel:
         x0, y0 = self._x0, self._y0
         out = None
         forced = None
-        try:
-            while total < s.max_iter:
-                this = min(chunk, s.max_iter - total)
-                is_final = total + this >= s.max_iter
-                dyn_c = dyn._replace(max_iter=this,
-                                     final_approx=1 if is_final else 0)
-                if out is not None:
-                    # the next_rho counter rebased to the chunk's start
-                    dyn_c = dyn_c._replace(
-                        rho_dir0=out.rho_dir, rho_gap0=out.rho_gap,
-                        next_rho0=max(out.next_rho - out.iter, 0))
-                t_ch = time.perf_counter()
-                res = self._run(dyn_c, x0, y0, polish=False)
-                self._sync()
-                out = res
-                el = max(time.perf_counter() - t_ch, 1e-3)
-                chunk = int(max(min(this / el * budget_s, 1e6), 1))
-                total += out.iter
-                if out.status not in (C.RUNNING, C.MAX_ITER_REACHED):
-                    break
-                if is_final:
-                    break
-                if (time.perf_counter() - t0) > s.time_limit:
-                    forced = C.TIME_LIMIT_REACHED
-                    break
-                x0, y0 = out.x, out.y
-        except KeyboardInterrupt:
-            if out is None:
-                raise
-            forced = C.INTERRUPTED
+        with comm.interrupts(self._mesh) as sigint:
+            try:
+                while total < s.max_iter:
+                    this = min(chunk, s.max_iter - total)
+                    is_final = total + this >= s.max_iter
+                    dyn_c = dyn._replace(max_iter=this,
+                                         final_approx=1 if is_final else 0)
+                    if out is not None:
+                        # the next_rho counter rebased to the chunk's start
+                        dyn_c = dyn_c._replace(
+                            rho_dir0=out.rho_dir, rho_gap0=out.rho_gap,
+                            next_rho0=max(out.next_rho - out.iter, 0))
+                    t_ch = time.perf_counter()
+                    res = self._run(dyn_c, x0, y0, polish=False)
+                    self._sync()
+                    out = res
+                    el = max(time.perf_counter() - t_ch, 1e-3)
+                    chunk = int(max(min(this / el * budget_s, 1e6), 1))
+                    total += out.iter
+                    if out.status not in (C.RUNNING, C.MAX_ITER_REACHED):
+                        break
+                    if is_final:
+                        break
+                    # one decision for every rank (the max of -chunk is
+                    # the smallest chunk)
+                    neg, late, intr = comm.agree(
+                        [-chunk, time.perf_counter() - t0 > s.time_limit,
+                         sigint[0]], self._mesh)
+                    chunk = -neg
+                    if intr or late:
+                        forced = C.INTERRUPTED if intr else \
+                            C.TIME_LIMIT_REACHED
+                        break
+                    x0, y0 = out.x, out.y
+            except KeyboardInterrupt:
+                if out is None:
+                    raise
+                forced = C.INTERRUPTED
         out = out._replace(iter=total)
         if s.polish and forced is None and out.status == C.SOLVED:
             out = self._run(dyn, out.x, out.y, polish=True)

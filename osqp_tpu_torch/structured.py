@@ -42,8 +42,14 @@ Ruiz scaling runs once on the host (scipy) at setup, with a unit cost
 anchor, so re-solves with new q, l, u reuse it. Statuses, certificates,
 the inaccurate statuses at max_iter, ``time_limit``/``Interrupted`` and
 the banded polish follow the JAX package. Solves run on the solver's
-device, the GPU unless the caller passes ``device="cpu"``; ``mesh`` is
-refused.
+device, the GPU unless the caller passes ``device="cpu"``.
+
+``mesh`` shards the lane batch over the ranks of a process group (one
+process a rank; every rank passes the global lanes and gets its own back).
+The banded data and the factor are replicated; the row classification,
+the shared rho's geometric mean (gathered exactly, as the shared engine
+does), the running count and the lanes-disagree warning are reduced over
+the ranks, and a time-limited solve agrees on its stop after each chunk.
 """
 
 from __future__ import annotations
@@ -61,9 +67,11 @@ from .core import dyn_from_settings, resolve_device, torch_dtype
 from .linalg import inf_norm, precision_scope, with_precision
 from .ops.shared_iter import split_bf16
 from .batch import _rho_value
+from .parallel import comm
 from .polish import PolishOutput
 from .settings import Settings
-from .shared_core import BRes, _classify_rows, _effective, _shared_rho_vec
+from .shared_core import (BRes, _classify_rows, _effective, _shared_rho_vec,
+                          rho_aggregate)
 from .types import solution_present
 
 _DIV_GUARD = 1e-10
@@ -566,7 +574,7 @@ def _solve_R(fac, rhs, kkt, tf32=False):
 def solve_banded(data: BandedData, qb, lb, ub, scal: BandedScaling, dyn,
                  x0, y0, z0, factor0: Optional[TFactor] = None,
                  with_factor: bool = False, kkt: str = "cr",
-                 tf32: bool = False):
+                 tf32: bool = False, mesh=None):
     """Batched banded ADMM on scaled data. qb (B, n); lb/ub (B, m);
     x0 (B, T, b); y0/z0 (B, m). Returns a dict of the results (unscaled
     x, y, z, status, iter, residuals, objective, certificates, the scaled
@@ -575,12 +583,14 @@ def solve_banded(data: BandedData, qb, lb, ub, scal: BandedScaling, dyn,
 
     ``kkt``: "cr" (block cyclic reduction) or "scan" (the recurrence).
     ``tf32``: the cyclic-reduction level products as bf16x3 splits (the
-    scan route's solve stays in full precision)."""
+    scan route's solve stays in full precision). ``mesh``: the lanes are
+    this rank's of a batch sharded over the mesh; the shared rho and the
+    loop's continuation are decided over every rank's lanes."""
     dtype, dev = data.Pd.dtype, data.Pd.device
     B = qb.shape[0]
     T, b = data.Pd.shape[0], data.Pd.shape[1]
     qblk = qb.reshape(B, T, b)
-    loose, eq = _classify_rows(lb, ub)
+    loose, eq = _classify_rows(lb, ub, mesh)
 
     if factor0 is None:
         rho_bar = torch.clamp(torch.as_tensor(dyn.rho_bar, dtype=dtype)
@@ -614,7 +624,10 @@ def solve_banded(data: BandedData, qb, lb, ub, scal: BandedScaling, dyn,
     rho_gap = int(dyn.rho_gap0) if dyn.rho_gap0 > 0 else rho_int
     next_rho = int(dyn.next_rho0)
     it = 0
-    n_run = B          # running lanes, known on the host after each read
+    # running lanes, known on the host after each read: this rank's, and
+    # the whole batch's
+    n_here = B
+    n_run = B * comm.size(mesh)
 
     while n_run > 0 and it < dyn.max_iter:
         rhs = sigma * x - qblk + _aty(data, rho_vec * z - y)
@@ -624,7 +637,7 @@ def solve_banded(data: BandedData, qb, lb, ub, scal: BandedScaling, dyn,
         v = alpha * zt + (1.0 - alpha) * z + rho_inv * y
         z_new = torch.clamp(v, lb, ub)
         y_new = rho_vec * (v - z_new)
-        if n_run < B:
+        if n_here < B:
             # finished lanes keep their iterates
             live = status == C.RUNNING
             x_new = torch.where(live[:, None, None], x_new, x)
@@ -657,9 +670,10 @@ def solve_banded(data: BandedData, qb, lb, ub, scal: BandedScaling, dyn,
         dua_res = torch.where(live, res.dua_res, dua_res)
         x, y, z = x_new, y_new, z_new
 
-        reads = [status.to(torch.int64)]
+        still = status == C.RUNNING
+        n_t = still.sum()
+        reads = [n_t, comm.sum(n_t, mesh)]
         if do_rho:
-            still = status == C.RUNNING
             pri_rel = res.pri_res / torch.clamp(res.pri_norm, min=_DIV_GUARD)
             dua_rel = torch.clamp(
                 res.dua_res / torch.clamp(res.dua_norm, min=_DIV_GUARD),
@@ -668,19 +682,14 @@ def solve_banded(data: BandedData, qb, lb, ub, scal: BandedScaling, dyn,
                                    C.RHO_MIN, C.RHO_MAX)
             est_lane = torch.where(torch.isfinite(est_lane), est_lane,
                                    rho_bar)
-            w = still.to(dtype)
-            cnt = torch.clamp(torch.sum(w), min=1.0)
-            est = torch.exp(torch.sum(w * torch.log(est_lane)) / cnt)
-            est = torch.clamp(est, C.RHO_MIN, C.RHO_MAX)
-            est = torch.where(still.any(), est, rho_bar)
+            est, _ = rho_aggregate(est_lane, still, None, rho_bar, mesh)
             tol = dyn.adaptive_rho_tolerance
-            reads.append(torch.stack(
-                [(est > rho_bar * tol) | (est < rho_bar / tol),
-                 est > rho_bar]).to(torch.int64))
-        vals = torch.cat(reads).tolist()
-        n_run = sum(1 for s_ in vals[:B] if s_ == C.RUNNING)
+            reads += [(est > rho_bar * tol) | (est < rho_bar / tol),
+                      est > rho_bar]
+        vals = torch.stack([r.to(torch.int64) for r in reads]).tolist()
+        n_here, n_run = vals[0], vals[1]
         if do_rho:
-            hit, up = vals[B], vals[B + 1]
+            hit, up = vals[2], vals[3]
             trig = (n_run > 0 and (dyn.rho_backoff == 0 or it >= next_rho)
                     and bool(hit))
             if trig:
@@ -699,7 +708,7 @@ def solve_banded(data: BandedData, qb, lb, ub, scal: BandedScaling, dyn,
     # ---- max_iter: the "inaccurate" statuses at 10x tolerance ----
     dx_bar = x - x_prev
     dy_bar = y - y_prev
-    if n_run > 0:
+    if n_here > 0:
         hit_max = status == C.RUNNING
         approx, res = _banded_check(
             data, qb, lb, ub, scal, dyn, x, y, z, dx_bar, dy_bar,
@@ -841,14 +850,19 @@ class BlockTridiagSolver:
     factor while the rho vector is unchanged.
 
     ``device``: "cuda" unless given; raises when CUDA is not available
-    (pass ``device="cpu"`` to run on the CPU). ``mesh`` is refused."""
+    (pass ``device="cpu"`` to run on the CPU).
+
+    ``mesh``: the lanes of :meth:`solve` and :meth:`solve_rollout` are
+    sharded over the mesh's ranks (B divisible by the mesh size); every
+    rank passes the global lanes and gets its own back, and a rollout's
+    ``step_fn`` sees the rank's lanes. A multi-axis mesh shards over its
+    first axis, as in the JAX package. The device is the mesh's unless
+    given."""
 
     def __init__(self, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "BlockTridiagSolver(mesh=...) lane sharding is not ported "
-                "yet (ROADMAP queue 1 item 11)")
-        self.device = resolve_device(device)
+        self._mesh = mesh = comm.axis(mesh)
+        self.device = (resolve_device(device) if mesh is None
+                       else comm.check_device(mesh, device))
         self._is_setup = False
 
     def setup(self, P=None, A=None, block: int = None,
@@ -929,6 +943,14 @@ class BlockTridiagSolver:
                                 dtype=self._tdtype(), device=self.device)
         return torch.atleast_2d(v)
 
+    def _lanes(self, *vs):
+        """This rank's lanes of 2-D global inputs (all of them without a
+        mesh); None stays None."""
+        if self._mesh is None:
+            return vs
+        sl = comm.block(self._mesh, vs[0].shape[0])
+        return tuple(None if v is None else self._t(v)[sl] for v in vs)
+
     def _check_setup(self):
         if not self._is_setup:
             raise RuntimeError("setup() first")
@@ -969,6 +991,7 @@ class BlockTridiagSolver:
         scaled iterates xbar, ybar, zbar."""
         self._check_setup()
         q, l, u = self._t(q), self._t(l), self._t(u)
+        q, l, u, x0, y0 = self._lanes(q, l, u, x0, y0)
         B = q.shape[0]
         l = torch.clamp(l, -C.OSQP_INFTY, C.OSQP_INFTY)
         u = torch.clamp(u, -C.OSQP_INFTY, C.OSQP_INFTY)
@@ -999,11 +1022,14 @@ class BlockTridiagSolver:
         # shared-rho semantics: one factorization implies one rho vector
         # for the batch; a row is boosted or loosened only when every lane
         # agrees. Surface the disagreement instead of applying it silently.
-        if B > 1:
+        if B * comm.size(self._mesh) > 1:
             loose_h = (l <= -C.INFTY_THRESH) & (u >= C.INFTY_THRESH)
             eq_h = (~loose_h) & (u - l < C.RHO_TOL)
-            if bool(torch.any(loose_h.any(0) != loose_h.all(0))
-                    | torch.any(eq_h.any(0) != eq_h.all(0))):
+            some = comm.any(torch.stack([loose_h.any(0), eq_h.any(0)]),
+                            self._mesh)
+            every = comm.all(torch.stack([loose_h.all(0), eq_h.all(0)]),
+                             self._mesh)
+            if bool(torch.any(some != every)):
                 warnings.warn(
                     "BlockTridiagSolver: lanes disagree on per-row bound "
                     "classification (equality/loose); the shared "
@@ -1019,7 +1045,7 @@ class BlockTridiagSolver:
             out, self._factor = solve_banded(
                 self._data, qb, lb, ub, self._scal, dyn, xb, yb, zb,
                 factor0=factor0, with_factor=True, kkt=self._kkt,
-                tf32=s.tf32())
+                tf32=s.tf32(), mesh=self._mesh)
             for k in _RESUME_KEYS:
                 out.pop(k)
 
@@ -1068,7 +1094,10 @@ class BlockTridiagSolver:
         A lane keeps the values of the chunk it finished in (its x, y, z,
         residuals and certificates). Chunks restart from the previous
         chunk's scaled iterates with the rho back-off state and the factor
-        carried, as the JAX package's driver."""
+        carried, as the JAX package's driver. Under a mesh the ranks agree
+        after every chunk on the stop (lanes left anywhere, the clock,
+        an interrupt on any rank: SIGINT is deferred to the chunk's end),
+        as ``BatchedSolver``'s driver does."""
         s = self.settings
         max_iter = int(s.max_iter)
         chunk = s.check_termination if s.check_termination > 0 else 25
@@ -1078,56 +1107,65 @@ class BlockTridiagSolver:
         total = 0
         out_acc = done = iters_acc = status_val = resume = None
         fac = factor0
-        try:
-            while total < max_iter:
-                this = min(chunk, max_iter - total)
-                is_final = total + this >= max_iter
-                dyn_c = dyn._replace(max_iter=this,
-                                     final_approx=1 if is_final else 0)
-                if resume is not None:
-                    dyn_c = dyn_c._replace(rho_dir0=resume[0],
-                                           rho_gap0=resume[1],
-                                           next_rho0=resume[2])
-                out, fac = solve_banded(
-                    self._data, qb, lb, ub, self._scal, dyn_c, xb, yb, zb,
-                    factor0=fac, with_factor=True, kkt=self._kkt,
-                    tf32=s.tf32())
-                # the next update's iteration, counted from the next
-                # chunk's start
-                li = out.pop("loop_it")
-                resume = (out.pop("rho_dir"), out.pop("rho_gap"),
-                          max(out.pop("next_rho") - li, 0))
-                # the host copy waits for the chunk, so the clock below
-                # reads after its results exist
-                st = out["status"].cpu().numpy()
-                it = out["iter"].cpu().numpy().astype(np.int64)
+        with comm.interrupts(self._mesh) as sigint:
+            try:
+                while total < max_iter:
+                    this = min(chunk, max_iter - total)
+                    is_final = total + this >= max_iter
+                    dyn_c = dyn._replace(max_iter=this,
+                                         final_approx=1 if is_final else 0)
+                    if resume is not None:
+                        dyn_c = dyn_c._replace(rho_dir0=resume[0],
+                                               rho_gap0=resume[1],
+                                               next_rho0=resume[2])
+                    out, fac = solve_banded(
+                        self._data, qb, lb, ub, self._scal, dyn_c, xb, yb,
+                        zb, factor0=fac, with_factor=True, kkt=self._kkt,
+                        tf32=s.tf32(), mesh=self._mesh)
+                    # the next update's iteration, counted from the next
+                    # chunk's start
+                    li = out.pop("loop_it")
+                    resume = (out.pop("rho_dir"), out.pop("rho_gap"),
+                              max(out.pop("next_rho") - li, 0))
+                    # the host copy waits for the chunk, so the clock
+                    # below reads after its results exist
+                    st = out["status"].cpu().numpy()
+                    it = out["iter"].cpu().numpy().astype(np.int64)
+                    if out_acc is None:
+                        out_acc = dict(out)
+                        done = np.zeros(st.shape, bool)
+                        iters_acc = np.zeros(st.shape, np.int64)
+                    newly = ((~done) & (st != C.RUNNING)
+                             & (st != C.MAX_ITER_REACHED))
+                    iters_acc = np.where(done, iters_acc, total + it)
+                    # lanes done before this chunk keep their committed
+                    # values; the others, those finishing now included,
+                    # take this chunk's
+                    keep = torch.as_tensor(done, device=self.device)
+                    for k in _LANE_KEYS:
+                        kv = keep.reshape(keep.shape
+                                          + (1,) * (out[k].dim() - 1))
+                        out_acc[k] = torch.where(kv, out_acc[k], out[k])
+                    done = done | newly
+                    total += this
+                    if is_final:
+                        break
+                    # one decision for every rank
+                    left, late, intr = comm.agree(
+                        [not np.all(done),
+                         time.perf_counter() - start > s.time_limit,
+                         sigint[0]], self._mesh)
+                    if not left:
+                        break
+                    if intr or late:
+                        status_val = (C.INTERRUPTED if intr
+                                      else C.TIME_LIMIT_REACHED)
+                        break
+                    xb, yb, zb = out["xbar"], out["ybar"], out["zbar"]
+            except KeyboardInterrupt:
                 if out_acc is None:
-                    out_acc = dict(out)
-                    done = np.zeros(st.shape, bool)
-                    iters_acc = np.zeros(st.shape, np.int64)
-                newly = ((~done) & (st != C.RUNNING)
-                         & (st != C.MAX_ITER_REACHED))
-                iters_acc = np.where(done, iters_acc, total + it)
-                # lanes done before this chunk keep their committed values;
-                # the others, those finishing now included, take this
-                # chunk's
-                keep = torch.as_tensor(done, device=self.device)
-                for k in _LANE_KEYS:
-                    kv = keep.reshape(keep.shape
-                                      + (1,) * (out[k].dim() - 1))
-                    out_acc[k] = torch.where(kv, out_acc[k], out[k])
-                done = done | newly
-                total += this
-                if np.all(done) or is_final:
-                    break
-                if (time.perf_counter() - start) > s.time_limit:
-                    status_val = C.TIME_LIMIT_REACHED
-                    break
-                xb, yb, zb = out["xbar"], out["ybar"], out["zbar"]
-        except KeyboardInterrupt:
-            if out_acc is None:
-                raise
-            status_val = C.INTERRUPTED
+                    raise
+                status_val = C.INTERRUPTED
         if status_val is not None:
             out_acc["status"] = torch.where(
                 torch.as_tensor(done, device=self.device), out_acc["status"],
@@ -1146,10 +1184,12 @@ class BlockTridiagSolver:
         Warm starts and the banded factor carry across steps. Returns a
         dict of per-step ``status``/``iter``/``obj_val`` (n_steps, B)
         (and ``xs`` with ``keep_xs``) and the final ``x``/``y``. Neither
-        polish nor ``time_limit`` applies inside a rollout."""
+        polish nor ``time_limit`` applies inside a rollout. Under a mesh,
+        the rank's lanes throughout (``step_fn`` included)."""
         self._check_setup()
         s = self.settings
         q, l, u = self._t(q0), self._t(l0), self._t(u0)
+        q, l, u, x0, y0 = self._lanes(q, l, u, x0, y0)
         B = q.shape[0]
         x = (torch.zeros((B, self.n), dtype=self._tdtype(),
                          device=self.device) if x0 is None else self._t(x0))
@@ -1164,7 +1204,8 @@ class BlockTridiagSolver:
             qb, lb, ub, xb, yb, zb = self._scaled(q, l, u, x, y)
             out, fac = solve_banded(
                 self._data, qb, lb, ub, self._scal, dyn, xb, yb, zb,
-                factor0=fac, with_factor=True, kkt=self._kkt, tf32=s.tf32())
+                factor0=fac, with_factor=True, kkt=self._kkt, tf32=s.tf32(),
+                mesh=self._mesh)
             q, l, u = (self._t(v) for v in step_fn(out["x"], (q, l, u), k))
             for key in ("status", "iter", "obj_val"):
                 steps[key].append(out[key])

@@ -89,8 +89,8 @@ class CGCounter:
         self._real = core._kkt_matvec
 
     def patch(self):
-        def counted(sdata, sigma, rho_vec):
-            mv = self._real(sdata, sigma, rho_vec)
+        def counted(*args):
+            mv = self._real(*args)
             self.solves += 1
 
             def inner(v):

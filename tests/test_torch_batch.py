@@ -383,9 +383,14 @@ def test_nanfill_keeps_present_solutions():
     assert not torch.isnan(out.x[:2]).any() and torch.isnan(out.x[2]).all()
 
 
-def test_mesh_refuses():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedSolver(Settings(), mesh=object(), **CPU_SHARED)
+def test_mesh_refuses(tmp_path):
+    """``mesh=`` is no longer refused: a two-rank gloo world shards the
+    lanes of the per-lane and the shared engines (``tools/mesh_dryrun.py``
+    modes 1 and 3), each equal in status to the unsharded solve; the full
+    mesh cases are in ``test_torch_mesh_batch.py``."""
+    from osqp_tpu_torch.tools.mesh_dryrun import dryrun
+    assert dryrun(2, "cpu", store_dir=str(tmp_path), timeout=120,
+                  modes=["1", "3"]) == ["1 batched", "3 shared"]
 
 
 def test_cuda_device_without_gpu_raises():

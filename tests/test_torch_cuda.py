@@ -30,7 +30,16 @@ card against the CPU in float64: statuses, iterations and
 ``status_polish`` equal, x within 1e-6. The differentiable layers on the
 card against the CPU in float64: x, y and every gradient within 1e-8 (the
 batched layer's forward launching the leg kernel); ``ScenarioQP`` (fused
-and host loops): outer iterations and statuses equal, w within 1e-8.
+and host loops): outer iterations and statuses equal, w within 1e-8. The
+mesh paths on the card: NCCL at world 1 and gloo with two ranks on the one
+card (``tools/mesh_world.py``), against the unsharded solve on the card in
+float64: statuses, iterations and rho updates equal, x within 1e-9 (bit
+for bit at world 1), the leg kernel launched on every rank; a row-sharded
+``ShardedQP`` against the card's unsharded ``Model``: status and
+iterations equal, x within 1e-9; a row-sharded ``SparseModel`` with
+polish on the ranks' rows (dense and CG routes) against the card's
+unsharded one: status, iterations and status_polish equal, x and y within
+1e-8.
 """
 
 from unittest import mock
@@ -1035,3 +1044,125 @@ def test_served_chain_on_card_equals_live(dev):
     cpu_srv = load(blob, device="cpu")
     with pytest.raises(ValueError, match="device='cuda'"):
         cpu_srv.solve_device(torch.as_tensor(q, device=dev), l, u)
+
+
+# ---------------------------------------------------------------------------
+# mesh sharding on the card
+# ---------------------------------------------------------------------------
+
+def _mesh_batch():
+    rng = np.random.RandomState(4)
+    n, m, B = 16, 24, 64
+    M = rng.randn(n, n) / np.sqrt(n)
+    P = M.T @ M + 0.1 * np.eye(n)
+    A = rng.randn(m, n) / np.sqrt(n)
+    q = rng.randn(B, n)
+    c = 0.1 * rng.randn(B, m)
+    w = 1.0 + rng.rand(B, m)
+    return P, q, A, c - w, c + w
+
+
+_MESH_F64 = dict(eps_abs=1e-6, eps_rel=1e-6, verbose=False,
+                 dtype=np.float64, rho=1e-4, adaptive_rho_interval=25)
+
+
+def _mesh_rank(mesh):
+    """One rank on the card: a lane-sharded shared solve and a row-sharded
+    ShardedQP, gathered; the leg kernel's launches over the first."""
+    from osqp_tpu_torch.parallel import ShardedQP, gather
+    n0 = SK.admm_solve_shared.launches
+    out = BatchedSolver(Settings(**_MESH_F64), kkt_mode="shared",
+                        mesh=mesh).solve(*_mesh_batch())
+    if out.x.is_cuda:
+        torch.cuda.synchronize()
+    legs = SK.admm_solve_shared.launches - n0
+    g = gather(out, mesh)
+    P, q, A, l, u = _mesh_batch()
+    r = gather(ShardedQP(mesh, Settings(**_MESH_F64)).solve(
+        P, q[0], A, l[0], u[0]), mesh, rows=True)
+    return dict(legs=legs, device=str(out.x.device),
+                **{k: getattr(g, k).cpu().numpy()
+                   for k in ("status", "iter", "rho_updates", "x")},
+                row=dict(status=int(r.status), iter=int(r.iter),
+                         x=r.x.cpu().numpy(), y=r.y.cpu().numpy()),
+                polish={route: _mesh_polish(mesh, route)
+                        for route in ("dense", "cg")})
+
+
+def _mesh_polish_problem():
+    import scipy.sparse as sp
+    rng = np.random.RandomState(9)
+    n, m = 64, 128
+    Ph = sp.random(n, n, density=0.05, random_state=rng, format="csc")
+    P = (Ph.T @ Ph + 0.5 * sp.eye(n)).tocsc()
+    A = sp.random(m, n, density=0.05, random_state=rng, format="csc")
+    A = (A + 0.1 * sp.random(m, n, density=0.02, random_state=rng)).tocsc()
+    return P, rng.randn(n), A, -1 - rng.rand(m), 1 + rng.rand(m)
+
+
+def _mesh_polish(mesh, route):
+    """A polished row-sharded SparseModel (mesh None: unsharded) in
+    float64; ``route`` "cg" lowers the dense bound so that the polish
+    takes its matrix-free CG route."""
+    from osqp_tpu_torch import sparse_core
+    from osqp_tpu_torch.parallel import comm
+    P, q, A, l, u = _mesh_polish_problem()
+    bound = sparse_core._DENSE_ROUTE_N
+    if route == "cg":
+        sparse_core._DENSE_ROUTE_N = 0
+    try:
+        r = sparse_core.SparseModel(
+            mesh=mesh, device=None if mesh is not None else "cuda").setup(
+            P=P, q=q, A=A, l=l, u=u, verbose=False, eps_abs=1e-5,
+            eps_rel=1e-5, dtype=np.float64, sparse_format="padded",
+            polish=True, linsys_solver="indirect").solve()
+    finally:
+        sparse_core._DENSE_ROUTE_N = bound
+    y = torch.as_tensor(r.y, device=comm.device(mesh)) \
+        if mesh is not None else torch.as_tensor(r.y)
+    return dict(status=r.info.status, iter=r.info.iter,
+                status_polish=r.info.status_polish, x=r.x,
+                y=comm.gather(y, mesh).cpu().numpy())
+
+
+def _mesh_reference(dev):
+    import scipy.sparse as sp
+    from osqp_tpu_torch.interface import Model
+    ref = BatchedSolver(Settings(**_MESH_F64), kkt_mode="shared",
+                        device=dev).solve(*_mesh_batch())
+    P, q, A, l, u = _mesh_batch()
+    r = Model(device=dev).setup(P=sp.csc_matrix(P), q=q[0],
+                                A=sp.csc_matrix(A), l=l[0], u=u[0],
+                                **_MESH_F64).solve()
+    return ref, r
+
+
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_mesh_on_card_matches_unsharded(dev, tmp_path, world, backend):
+    """NCCL at world 1 and gloo with two ranks on the one card: the
+    sharded solves equal the unsharded ones on the card."""
+    from osqp_tpu_torch.tools.mesh_world import run_world
+    res = run_world(_mesh_rank, world, tmp_path, device="cuda:0",
+                    backend=backend, timeout=300)
+    ref, model = _mesh_reference(dev)
+    for r in res:
+        assert r["device"].startswith("cuda") and r["legs"] > 0
+        np.testing.assert_array_equal(r["status"], ref.status.cpu().numpy())
+        np.testing.assert_array_equal(r["iter"], ref.iter.cpu().numpy())
+        np.testing.assert_array_equal(r["rho_updates"],
+                                      ref.rho_updates.cpu().numpy())
+        if world == 1:
+            np.testing.assert_array_equal(r["x"], ref.x.cpu().numpy())
+        np.testing.assert_allclose(r["x"], ref.x.cpu().numpy(), rtol=0,
+                                   atol=1e-9)
+        assert r["row"]["status"] == model.info.status_val
+        assert r["row"]["iter"] == model.info.iter
+        np.testing.assert_allclose(r["row"]["x"], model.x, atol=1e-9)
+        np.testing.assert_allclose(r["row"]["y"], model.y, atol=1e-9)
+        for route, got in r["polish"].items():
+            want = _mesh_polish(None, route)
+            assert want["status_polish"] == 1
+            for k in ("status", "iter", "status_polish"):
+                assert got[k] == want[k], (route, k)
+            np.testing.assert_allclose(got["x"], want["x"], atol=1e-8)
+            np.testing.assert_allclose(got["y"], want["y"], atol=1e-8)

@@ -1,7 +1,7 @@
 """The port's ``ScenarioQP`` (``osqp_tpu_torch.parallel.scenario``) against
 ``osqp_tpu.parallel.scenario.ScenarioQP`` on the CPU: every case of
-test_scenario.py through both packages, plus the port's refusal of
-``mesh=``, its device rule and ``convert.scenario_to_torch``.
+test_scenario.py through both packages, plus ``mesh=`` over a two-rank
+world, its device rule and ``convert.scenario_to_torch``.
 
 Both packages get the same numpy inputs. In float64 the fused and host
 outer loops take the reference's outer iteration counts exactly, the
@@ -155,9 +155,14 @@ def test_scenario_tf32_converges_to_same_consensus():
                                atol=5e-4)
 
 
-def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        ScenarioQP(k=3, mesh=object(), device="cpu")
+def test_mesh_is_refused(tmp_path):
+    """``mesh=`` is no longer refused: ScenarioQP shards its scenarios over
+    a two-rank gloo world (``tools/mesh_dryrun.py`` mode 4: the outer
+    iterations and w of the unsharded loop); the full cases are in
+    ``test_torch_mesh_parallel.py``."""
+    from osqp_tpu_torch.tools.mesh_dryrun import dryrun
+    assert dryrun(2, "cpu", store_dir=str(tmp_path), timeout=120,
+                  modes=["4"]) == ["4 scenario"]
 
 
 def test_device_rule(monkeypatch):

@@ -1,15 +1,16 @@
 """The port's sparse engine (``osqp_tpu_torch/sparse_core.py``) against
 ``osqp_tpu.sparse_core.SparseModel`` on the CPU.
 
-Every case of ``test_sparse.py`` but the mesh case, and
+Every case of ``test_sparse.py`` but the mesh case (in
+``test_torch_mesh_rows.py``), and
 ``test_tf32_engines.py::test_sparse_dense_routed_tf32_status_parity``, runs
 through both packages by a :class:`SparseTwin`: the same scipy inputs, and
 on each solve equal status, iterations, rho updates and ``status_polish``,
 x, y, the objective and the certificates within rtol 1e-7, atol 1e-9 in
 float64 (``RTOL``/``ATOL``; a float32 case states its own). The original
 test's own assertions then run on the port's result. The port's
-refusals (mesh, a missing GPU) and its time-limited
-driver have cases of their own.
+refusals (a missing GPU, unknown formats), ``mesh=`` over a two-rank
+world and its time-limited driver have cases of their own.
 """
 
 import numpy as np
@@ -356,10 +357,14 @@ def test_sparse_dense_routed_tf32_status_parity():
 
 # ------------------------------------------------- the port's own surface
 
-def test_refusals_name_their_roadmap_items():
+def test_refusals_name_their_roadmap_items(tmp_path):
     P, q, A, l, u = make_sparse_problem(n=16, m=24)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        TSC.SparseModel(mesh=object(), device="cpu")
+    # mesh= is no longer refused: the rows shard over a two-rank gloo
+    # world (tools/mesh_dryrun.py mode 5; full cases in
+    # test_torch_mesh_rows.py)
+    from osqp_tpu_torch.tools.mesh_dryrun import dryrun
+    assert dryrun(2, "cpu", store_dir=str(tmp_path), timeout=120,
+                  modes=["5"]) == ["5 sparse"]
     # the banded backend is ported: "mkl pardiso" routes to it
     assert TSC.SparseModel(device="cpu").setup(
         P=P, q=q, A=A, l=l, u=u, linsys_solver="mkl pardiso",

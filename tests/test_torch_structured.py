@@ -2,7 +2,8 @@
 ``osqp_tpu.structured`` on the CPU.
 
 Every case of ``test_structured.py`` runs through both packages (the mesh
-case becomes the port's refusal of mesh): :class:`StructTwin` sets up
+case over a two-rank world, and in ``test_torch_mesh_parallel.py``):
+:class:`StructTwin` sets up
 both solvers with the same scipy inputs, float64, and on each solve
 requires equal status, iterations, rho updates and ``status_polish``, and
 x, y, z, the objective, the residuals and the certificates (on the lanes
@@ -410,11 +411,14 @@ def test_cr_and_scan_kkt_solvers_agree():
                                atol=1e-9)
 
 
-def test_structured_batch_sharded_over_mesh():
-    """Lane sharding over a mesh is not ported: the port refuses it and
-    names the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        TS.BlockTridiagSolver(mesh=object(), device="cpu")
+def test_structured_batch_sharded_over_mesh(tmp_path):
+    """Lane sharding over a mesh: a two-rank gloo world
+    (``tools/mesh_dryrun.py`` mode 6) gives the unsharded statuses; the
+    reference case itself, against both packages, is in
+    ``test_torch_mesh_parallel.py``."""
+    from osqp_tpu_torch.tools.mesh_dryrun import dryrun
+    assert dryrun(2, "cpu", store_dir=str(tmp_path), timeout=120,
+                  modes=["6"]) == ["6 structured"]
 
 
 def test_structured_rollout_matches_host_loop():
