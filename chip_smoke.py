@@ -89,8 +89,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    each traced for the idle share; (b) the S and update cells of the
    torch-sparse and torch-sparse-mf columns in float64, each status equal
    to conformance.json's ``sparse``/``sparse-mf`` row (in five worker
-   processes), and meanwhile the 12 L solved cells of torch-sparse with
-   the oracle's gates; (c) the modeling
+   processes; torch-sparse-mf's lp_qp cells, 290-360 s through the CG
+   path, are left to ``python3 -m osqp_tpu_torch.tools.conformance
+   --columns torch-sparse-mf``), and meanwhile the 12 L solved cells of
+   torch-sparse with the oracle's gates; (c) the modeling
    layer at full width: control_qp L (n=960, m=1600) built through
    ``Problem(device="cuda")`` in float32 at eps 1e-3, one
    ``add_constraint`` per row, solved cold and through 20 MPC steps of
@@ -182,22 +184,40 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    unsharded solve's status and iterations and x within 1e-9 relative;
    one JSON line a cell (ms per rank, launches per rank, collectives a
    solve and their ms);
-15. prints one JSON line of the three kernels (launch counts of their own
-   paths and of phases 8, 9, 10, 11, 12, 13 and 14, agreement with the
-   twins, times, and the least time the card could take for the same
-   work), the nvidia-smi line, and last the device line ``{"ok": true,
-   "device": {...}}``.
+15. drives the port's entry points outside the solver, each part in a
+   fresh process: (a) the shape sweep (``osqp_tpu_torch/tools/
+   bench_shapes.py``) at n, m = 64, 128; 128, 256; 256, 512; 512, 1024
+   and B=4096: every route of the three kernels that the shape takes (the
+   leg in float32, tf32 and float64, the iteration chunk in float32 and
+   lowp, the fused chunk in float32 on as many per-lane operators as fit
+   24 GB) held against its twin on 256 lanes and timed beside its bound,
+   then the cold shared solve in float32 and in mixed precision, every
+   lane Solved, 64 lanes in float64 numpy; (b) the seven examples of
+   ``osqp_tpu_torch/examples/`` at the JAX examples' sizes, each held to
+   its check (every MPC lane Solved; served equal to live on every lane,
+   by a spawned server that imports neither jax nor osqp_tpu; the layers'
+   losses falling 100 and 50 times; the consensus w within 1e-3 of the
+   monolithic QP's; every structured solve Solved; the large sparse QP
+   Solved within 1e-2 of its bounds); (c) a 30 s soak of prepared
+   re-solves at the bench width (``tools/soak.py``): every lane Solved,
+   no device-memory growth beyond one batch's workspace, leg launches a
+   solve steady; it checks that the phase launched all three kernels;
+16. prints one JSON line of the three kernels (launch counts of their own
+   paths and of phases 8 to 15, agreement with the twins, times, and the
+   least time the card could take for the same work), the nvidia-smi
+   line, and last the device line ``{"ok": true, "device": {...}}``.
 
-Each path (4, 6, 7, each of phase 8's, phases 9, 10, 11, 12, 13 and 14)
+Each path (4, 6, 7, each of phase 8's, phases 9 to 15)
 runs
 with every launch counter set to 0 just before it and read just after (a
 worker process reports the launches it made, added to its phase's). Any
 failed check raises, so the exit code is non-zero and no device line is
 printed. Without a GPU, or outside a checkout, it exits non-zero too. The
 compiler's register/shared-memory report, phase 8's, 9's, 10's and 11's
-per-cell conformance lines, phase 9's to 14's numbers
+per-cell conformance lines, phase 9's to 15's numbers
 (model_phase.json, sparse_phase.json, structured_phase.json,
-diff_phase.json, serve_phase.json, mesh_phase.json), phase 12's trace
+diff_phase.json, serve_phase.json, mesh_phase.json, entry_phase.json),
+phase 12's trace
 (diff_trace/trace.json) and phase 13's artifacts go to the output
 directory beside the run (``out_dir`` in ``run``).
 """
@@ -217,13 +237,19 @@ from unittest import mock
 
 import numpy as np
 
+from osqp_tpu_torch.tools import bench_shapes as BS
+from osqp_tpu_torch.tools import require
+from osqp_tpu_torch.tools.bench_shapes import (
+    cuda_ms, kernel_wrappers, residual_check)
+from osqp_tpu_torch.tools.learned_mpc import bench_batch as make_batch
+
 B_MAIN, N, M = 4096, 128, 256
 EPS = 1e-3
 SEED = 0
-K_CHUNK = 25
-#: H100 SXM peaks (NVIDIA's data sheet, dense): float32 outside the tensor
-#: cores, bf16 in them, and the device memory rate.
-PEAK_F32, PEAK_BF16, MEM_RATE = 67e12, 989e12, 3.35e12
+K_CHUNK = BS.K_CHUNK
+#: H100 SXM float32 peak outside the tensor cores (NVIDIA's data sheet)
+#: and the device memory rate.
+PEAK_F32, MEM_RATE = BS.PEAK["f32"], BS.MEM_RATE
 #: What the fused kernel's designs can reach on an H100 SXM: 132 SMs, each
 #: reading 128 bytes of shared memory and issuing 128 float32 FMAs a clock,
 #: at the clock that the float32 peak implies (1.98 GHz).
@@ -231,19 +257,6 @@ NUM_SMS, SMEM_RATE, FMA_RATE = 132, 128, 128
 SM_CLOCK = PEAK_F32 / (2 * NUM_SMS * FMA_RATE)
 #: Worker processes for the single-problem conformance cells (phases 9, 10).
 CELL_WORKERS = 5
-
-
-def make_batch(B, n, m, seed=0):
-    """Random strongly convex MPC-style QPs sharing one P and A (the
-    generator of the JAX package's bench.py)."""
-    rng = np.random.RandomState(seed)
-    Mx = rng.randn(n, n) / np.sqrt(n)
-    P = Mx.T @ Mx + 0.1 * np.eye(n)
-    A = rng.randn(m, n) / np.sqrt(n)
-    q = rng.randn(B, n)
-    width = 1.0 + rng.rand(B, m)
-    center = rng.randn(B, m) * 0.1
-    return P, q, A, center - width, center + width
 
 
 def make_per_lane_batch(torch, B, n, m, seed=0):
@@ -261,51 +274,8 @@ def make_per_lane_batch(torch, B, n, m, seed=0):
     return P, q, A, center - width, center + width
 
 
-def bound(flops, nbytes, peak):
-    """Least time in ms for the work: operations at ``peak`` or bytes at
-    the memory rate, whichever is longer, and which of the two it is."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / MEM_RATE * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def residual_check(tag, out, P, q, A, l, u, idx):
-    """Float64 numpy check of sampled lanes at the solver's eps (0.1% slack
-    for the float32 rounding of x, y, z); P and A are shared (2-D) or per
-    lane (3-D)."""
-    xs = out.x.double().cpu().numpy()[idx]
-    ys = out.y.double().cpu().numpy()[idx]
-    zs = out.z.double().cpu().numpy()[idx]
-    require(np.isfinite(xs).all() and xs.shape == (len(idx), N),
-            f"{tag}: bad x")
-    if P.ndim == 2:
-        Ax, Px, Aty = xs @ A.T, xs @ P, ys @ A
-    else:
-        Pi, Ai = P[idx], A[idx]
-        Ax = np.einsum("bmn,bn->bm", Ai, xs)
-        Px = np.einsum("bnk,bk->bn", Pi, xs)
-        Aty = np.einsum("bmn,bm->bn", Ai, ys)
-    inf = lambda v: np.abs(v).max(axis=1)  # noqa: E731
-    pri = inf(Ax - zs)
-    dua = inf(Px + q[idx] + Aty)
-    pri_thr = EPS + EPS * np.maximum(inf(Ax), inf(zs))
-    dua_thr = EPS + EPS * np.maximum(np.maximum(inf(Px), inf(Aty)),
-                                     inf(q[idx]))
-    viol = np.maximum(l[idx] - zs, zs - u[idx]).max()
-    say(f"{tag} float64 check, {len(idx)} lanes: max pri/threshold "
-        f"{(pri / pri_thr).max():.4f}, max dua/threshold "
-        f"{(dua / dua_thr).max():.4f}, max bound violation {viol:.2e}")
-    require(np.all(pri <= 1.001 * pri_thr), f"{tag}: primal residual above eps")
-    require(np.all(dua <= 1.001 * dua_thr), f"{tag}: dual residual above eps")
-    require(viol <= 1e-5, f"{tag}: z outside [l, u]")
-
-
 def say(*a):
     print(*a, flush=True)
-
-
-def require(cond, what):
-    if not cond:
-        raise AssertionError(what)
 
 
 def gpu_line():
@@ -331,20 +301,6 @@ def ptxas_usage(log, kernel):
     return "not in the compiler report"
 
 
-def cuda_ms(torch, fn, reps):
-    """Median device time of ``fn`` in ms, CUDA events around each call."""
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def wall_ms(torch, fn, reps):
     """Median wall time of ``fn`` in ms, ending in a device sync."""
     times = []
@@ -359,24 +315,7 @@ def wall_ms(torch, fn, reps):
 
 def leg_setup(torch, dtype, B, seed=SEED):
     """One cold leg's inputs at the bench shape, scaled as the engine does."""
-    from osqp_tpu_torch.shared_core import (
-        _classify_rows, _shared_inverse, _shared_rho_vec, shared_ruiz)
-    dev = torch.device("cuda")
-    P, q, A, l, u = (torch.as_tensor(v, dtype=dtype, device=dev)
-                     for v in make_batch(B, N, M, seed))
-    Pb, Ab, scal = shared_ruiz(P, A, torch.amax(torch.abs(q), dim=0), 10)
-    qb, lb, ub = scal.c * scal.D * q, scal.E * l, scal.E * u
-    loose, eq = _classify_rows(lb, ub)
-    rho_vec, rho_inv = _shared_rho_vec(
-        loose, eq, torch.tensor(0.1, dtype=dtype, device=dev))
-    sigma = torch.tensor(1e-6, dtype=dtype)
-    Rinv = _shared_inverse(Pb, Ab, sigma, rho_vec)
-    zeros = lambda k: torch.zeros((B, k), dtype=dtype, device=dev)  # noqa
-    args = (Rinv, Pb, Ab, rho_vec, rho_inv, scal.Einv, scal.Dinv, scal.cinv,
-            qb, lb, ub, zeros(N), zeros(M), zeros(M), sigma,
-            torch.tensor(1.6, dtype=dtype), 100, 25,
-            torch.tensor(EPS, dtype=dtype), torch.tensor(EPS, dtype=dtype))
-    return args, dict(scal=scal, eps_pinf=1e-4, eps_dinf=1e-4)
+    return BS.leg_inputs(torch, dtype, B, N, M, "cuda", seed)
 
 
 def dispatch_counter(BatchedSolver):
@@ -634,16 +573,6 @@ def start_oracles():
     return pool, futures
 
 
-def kernel_wrappers():
-    """The three kernels' wrappers by name (each keeps its launch count)."""
-    from osqp_tpu_torch.ops import fused_iter as FI
-    from osqp_tpu_torch.ops import shared_iter as SI
-    from osqp_tpu_torch.ops import solve_kernel as SK
-    return {"admm_solve_shared": SK.admm_solve_shared,
-            "admm_iterate_shared": SI.admm_iterate_shared,
-            "admm_iterate": FI.admm_iterate}
-
-
 def counted_cells(todo, column, device, expected):
     """``conformance.check_cells`` in a worker process, with the launches of
     the three kernels over it (the main process's counts do not see a
@@ -658,15 +587,17 @@ def counted_cells(todo, column, device, expected):
 class CellPool:
     """The S and update cells of single-problem conformance columns on the
     card, in CELL_WORKERS spawned processes beside the main process's work
-    (the one-problem solves are host-bound); ``join`` returns the rows and
-    the kernels' launches summed over the workers."""
+    (the one-problem solves are host-bound), less the (column, family)
+    pairs in ``skip``; ``join`` returns the rows and the kernels' launches
+    summed over the workers."""
 
-    def __init__(self, columns):
+    def __init__(self, columns, skip=()):
         from osqp_tpu_torch.tools import conformance as CF
         self.t0 = time.perf_counter()
         self.pool = CF.worker_pool(CELL_WORKERS)
         self.futures = [self.pool.submit(counted_cells, *t)
-                        for t in CF.column_tasks(columns, "cuda")]
+                        for t in CF.column_tasks(columns, "cuda")
+                        if (t[1], t[0][0][1]) not in skip]
 
     def join(self):
         try:
@@ -1019,11 +950,12 @@ def phase10_sparse(torch, reset_counts, counts, out_dir, oracles):
         f"faster format: {nums['large']['auto_pick']!r}")
 
     # -- (b) the S and update cells of both sparse columns, float64, in
-    # worker processes (lp_qp's through the CG path take minutes), while
-    # the 12 L solved cells of torch-sparse run here --
+    # worker processes, while the 12 L solved cells of torch-sparse run
+    # here; torch-sparse-mf's lp_qp cells (through the CG path, 290-360 s
+    # of this phase) run by tools/conformance.py alone --
     log = []
     cols = ("torch-sparse", "torch-sparse-mf")
-    pool = CellPool(cols)
+    pool = CellPool(cols, skip={("torch-sparse-mf", "lp_qp")})
     nums["l_cells_s"] = oracle_l_cells("10b", "torch-sparse", "sparse",
                                        oracles, log)
     rows, pool_launches = pool.join()
@@ -1032,7 +964,7 @@ def phase10_sparse(torch, reset_counts, counts, out_dir, oracles):
     for col in cols:
         nums[f"{col}_s"] = sum(r["seconds"] for r in rows
                                if r["column"] == col)
-    say(f"[10b] the 120 cells in {CELL_WORKERS} worker processes: "
+    say(f"[10b] the {len(rows)} cells in {CELL_WORKERS} worker processes: "
         f"{pool.seconds:.1f} s (beside the L cells); per cell in "
         f"{out_dir / 'conformance_sparse.txt'}")
     (out_dir / "conformance_sparse.txt").write_text("\n".join(log) + "\n")
@@ -1114,6 +1046,7 @@ def timed_diff(out_dir):
     """Phase 12 in a worker process of its own. Returns (its numbers, the
     three kernels' launches over it)."""
     import torch
+    from osqp_tpu_torch.examples import learned_mpc as LX
     from osqp_tpu_torch.tools import learned_mpc as LM
     from osqp_tpu_torch.tools import scenario_qp as SQ
     kernels = kernel_wrappers()
@@ -1124,14 +1057,15 @@ def timed_diff(out_dir):
                                       require)
     nums["layer"]["s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    nums["scenario"] = SQ.run(torch, "cuda", say=say, require=require)
+    nums["scenario"] = SQ.run(torch, "cuda", say=say)
     nums["scenario"]["s"] = time.perf_counter() - t0
     # the profiler trace last but one: after a trace this process's
     # launches run slower, and (b) times nothing that the phase reports
     nums["trace"] = LM.traced_step(torch, "cuda", B_MAIN, N, M,
                                    str(Path(out_dir) / "diff_trace"), say)
     t0 = time.perf_counter()
-    nums["example"] = LM.example_loop(torch, "cuda", 150, say, require)
+    nums["example"] = LX.main("cuda", 150, functools.partial(say, "[12b]"))
+    LX.check(nums["example"])
     nums["example"]["s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     return nums, {k: fn.launches - before[k] for k, fn in kernels.items()}
@@ -1253,8 +1187,7 @@ def phase14_mesh(torch, reset_counts, counts, out_dir):
 
     reset_counts()
     rows, launches, seconds = MS.run(
-        str(out_dir), MS.config("cuda", B=B_MAIN, n=N, m=M), say=say,
-        require=require)
+        str(out_dir), MS.config("cuda", B=B_MAIN, n=N, m=M), say=say)
     launches = merge_counts(counts(), launches)
     say(f"[14] launches over the mesh phase: {launches}; phase "
         f"{seconds:.1f} s")
@@ -1264,6 +1197,137 @@ def phase14_mesh(torch, reset_counts, counts, out_dir):
         json.dumps(dict(rows=rows, launches=launches, seconds=seconds),
                    indent=1, default=float))
     return launches, rows
+
+
+#: the port's examples, each run at the JAX example's size in phase 15(b)
+EXAMPLES = ("mpc", "serving_artifact", "diff_qp", "learned_mpc", "scenario",
+            "structured_mpc", "large_sparse")
+
+
+def scalars(v):
+    """The JSON-able part of an example's numbers: numbers, strings and
+    lists of them, dicts of those; arrays dropped."""
+    if isinstance(v, dict):
+        out = {k: scalars(x) for k, x in v.items()}
+        return {k: x for k, x in out.items() if x is not None}
+    if isinstance(v, (list, tuple)):
+        out = [scalars(x) for x in v]
+        return out if all(x is not None for x in out) else None
+    if isinstance(v, (bool, int, float, str, np.integer, np.floating)):
+        return v.item() if isinstance(v, np.generic) else v
+    return None
+
+
+def counted(fn, *args):
+    """``fn(*args)`` in a worker process: (its result, the three kernels'
+    launches in this process over it)."""
+    import torch
+    kernels = kernel_wrappers()
+    before = {k: f.launches for k, f in kernels.items()}
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: f.launches - before[k] for k, f in kernels.items()}
+
+
+def shapes_worker():
+    """Phase 15(a): the shape sweep (rows, launches in the holds, launches
+    on the path)."""
+    import torch
+    return BS.sweep(torch, "cuda", B_MAIN, say=say, emit=lambda row: None)
+
+
+def examples_worker():
+    """Phase 15(b): every example at the JAX example's size on the card,
+    each checked; {name: its numbers}."""
+    import importlib
+    nums = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"osqp_tpu_torch.examples.{name}")
+        t0 = time.perf_counter()
+        res = mod.main(device="cuda", say=functools.partial(
+            say, f"[15b] {name}:"))
+        mod.check(res)
+        nums[name] = scalars(res)
+        nums[name]["s"] = time.perf_counter() - t0
+    return nums
+
+
+def soak_worker():
+    """Phase 15(c): 30 s of prepared re-solves at the bench width."""
+    import torch
+    from osqp_tpu_torch.tools import soak as SO
+    return SO.soak(torch, 30.0, B_MAIN, N, M, "cuda", say=say)
+
+
+def in_fresh_process(fn, *args):
+    """``counted(fn, *args)`` in a spawned process of its own."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as one:
+        return one.submit(counted, fn, *args).result()
+
+
+def phase15_entry_points(torch, reset_counts, counts, out_dir):
+    """Phase 15: the shape sweep, the examples and the soak, each in a fresh
+    process. Returns (launches of the three kernels over the phase, summed
+    over its processes; the numbers it measured)."""
+    reset_counts()
+    t_phase = time.perf_counter()
+    nums = {}
+    t0 = time.perf_counter()
+    (rows, held, path), launches_a = in_fresh_process(shapes_worker)
+    nums.update(shapes=rows, shapes_s=time.perf_counter() - t0,
+                shapes_held_launches=held, shapes_path_launches=path)
+
+    def timed(v):
+        return BS.ms_text(v["ms"]) + ("" if v["ms"] is None else
+                                      f" ({v['times_bound']:.1f}x)")
+
+    for r in rows:
+        leg, it, fu, so = r["leg"], r["iterate"], r["fused"], r["solve"]
+        say(f"[15a] n={r['n']} m={r['m']} B={r['B']}, ms (times the bound): "
+            + ", ".join(f"leg {k} {timed(v)}" for k, v in leg.items())
+            + ", " + ", ".join(f"chunk {k} {v['route']} {timed(v)}"
+                               for k, v in it.items())
+            + f", fused {fu['route']} B={fu['B']} {timed(fu)}; cold solve "
+            f"f32 {BS.ms_text(so['f32']['ms'])} ms, mixed "
+            f"{BS.ms_text(so['mixed']['ms'])} ms")
+    say(f"[15a] sweep {nums['shapes_s']:.1f} s; launches held against the "
+        f"twins and timed {held}, on the solves {path}")
+
+    t0 = time.perf_counter()
+    ex, launches_b = in_fresh_process(examples_worker)
+    nums.update(examples=ex, examples_s=time.perf_counter() - t0)
+    served = sum(ex["serving_artifact"]["leg_launches"])
+    say(f"[15b] the {len(ex)} examples, each checked, in "
+        f"{nums['examples_s']:.1f} s: " + ", ".join(
+            f"{k} {v['s']:.1f} s" for k, v in ex.items())
+        + f"; the serving process's leg launches {served}")
+    require(served > 0, "[15b] the served requests never launched the leg "
+            "kernel")
+    launches_b = dict(launches_b)
+    launches_b["admm_solve_shared"] += served
+
+    t0 = time.perf_counter()
+    nums["soak"], launches_c = in_fresh_process(soak_worker)
+    nums["soak_s"] = time.perf_counter() - t0
+    soak = nums["soak"]
+    require(not soak["failures"], f"[15c] soak: {soak['failures'][:3]}")
+
+    launches = merge_counts(counts(), launches_a, launches_b, launches_c)
+    nums.update(launches=launches, launches_by_part=dict(
+        a=launches_a, b=launches_b, c=launches_c))
+    nums["phase_s"] = time.perf_counter() - t_phase
+    say(f"[15] launches over the entry-point phase: {launches} (a "
+        f"{launches_a}, b {launches_b}, c {launches_c}); phase "
+        f"{nums['phase_s']:.1f} s (a {nums['shapes_s']:.1f} s, b "
+        f"{nums['examples_s']:.1f} s, c {nums['soak_s']:.1f} s)")
+    require(all(v > 0 for v in launches.values()),
+            "[15] the phase did not launch all three kernels")
+    (out_dir / "entry_phase.json").write_text(
+        json.dumps(nums, indent=1, default=float))
+    return launches, nums
 
 
 def main():
@@ -1280,7 +1344,7 @@ def main():
 
 
 def run(torch, oracles):
-    """Phases 1-14 and the result lines (``main`` after its checks)."""
+    """Phases 1-16 (``main`` after its checks)."""
     from osqp_tpu_torch import constants as C
     from osqp_tpu_torch.batch import BatchedSolver
     from osqp_tpu_torch.linalg import precision_scope
@@ -1383,14 +1447,9 @@ def run(torch, oracles):
             f"{leg_ms2:.3f} ms, plain twin {plain_ms:.3f} ms, max |dx| "
             f"{main_err:.3e} over {int(same.sum())} lanes with equal "
             f"iterations (tolerance 1e-3)")
-        # the work this leg's data needs: each lane's own iterations and
-        # checks (every 25th), each operator and lane vector moved once
-        its = k[6].double().cpu().numpy()
-        leg_flops = float(np.sum(its * 2 * (2 * M * N + N * N)
-                                 + (its // 25) * 2 * (4 * M * N + 2 * N * N)))
-        leg_bytes = 4 * (2 * N * N + 3 * M * N
-                         + B_MAIN * (4 * N + 7 * M + 8) + B_MAIN)
-        leg_bound, leg_by = bound(leg_flops, leg_bytes, PEAK_F32)
+        # the work this leg's data needs (each lane's own iterations)
+        leg_bound, leg_by, leg_flops, leg_bytes = BS.leg_bound(
+            k[6].double().cpu().numpy(), B_MAIN, N, M, "f32")
         say(f"[3] leg bound {leg_bound:.3f} ms ({leg_by}): "
             f"{leg_flops / 1e9:.2f} GFLOP, {leg_bytes / 1e6:.1f} MB")
         # yardstick, never called by the port: the leg's 100 x 3 iteration
@@ -1525,7 +1584,10 @@ def run(torch, oracles):
     # Tolerances relative to max(1, max |output|): float32 and tf32 1e-4
     # (summation order); lowp 5e-2, since a float32 sum that differs in the
     # last bit can round w or rhs to the neighbouring bf16 value (2^-8
-    # relative) and 25 iterations carry such steps on.
+    # relative) and 25 iterations carry such steps on. Each hold also
+    # needs the kernel nearer the twin than the twin's last iteration
+    # moved it, and lagging it by at most a quarter of that iteration
+    # (bench_shapes.chunk_hold).
     iter_rows = {}
     kernel_of = {"tiled": "tiled_iterate_kernelILi%dE", "mma":
                  "mma_iterate_kernel"}
@@ -1535,7 +1597,6 @@ def run(torch, oracles):
          z0, sigma, alpha) = args[:16]
         it_args = (Rinv, Ab, rho_vec, rho_inv, qb, lb, ub, x0, y0, z0,
                    sigma, alpha, K_CHUNK)
-        iter_flops = 2.0 * (2 * M * N + N * N) * B_MAIN * K_CHUNK
         for name, kw2, tol in (("f32", {}, 1e-4),
                                ("lowp", dict(lowp=True), 5e-2),
                                ("tf32", dict(tf32=True), 1e-4)):
@@ -1543,22 +1604,18 @@ def run(torch, oracles):
             routes = [default] + (["simple"] if default != "simple" else [])
             with plain_iterate():
                 p = SI.admm_iterate_shared(*it_args, **kw2)
-            torch.cuda.synchronize()
-            scale = max(1.0, max(float(v.abs().max()) for v in p))
+                ctl = SI.admm_iterate_shared(*it_args[:-1], K_CHUNK - 1,
+                                             **kw2)
             errs = {}
             for r in routes:
                 with iterate_route(r):
                     k = SI.admm_iterate_shared(*it_args, **kw2)
-                torch.cuda.synchronize()
-                errs[r] = max(float((a - b).abs().max())
-                              for a, b in zip(k, p))
+                hold = BS.chunk_hold(f"[5] {name}, {r} route", k, p, ctl,
+                                     tol)
+                errs[r] = hold["max_abs_err"]
                 say(f"[5] {name} chunk B={B_MAIN} K={K_CHUNK}, {r} route"
-                    f"{' (the default)' if r == default else ''}: max "
-                    f"|kernel - plain| over x, y, z, x_prev, y_prev "
-                    f"{errs[r]:.3e} (scale {scale:.2f}, tolerance {tol:g} "
-                    f"of it)")
-                require(errs[r] <= tol * scale,
-                        f"[5] {name}, {r} route: outputs differ by {errs[r]}")
+                    f"{' (the default)' if r == default else ''}: over x, "
+                    f"y, z, x_prev, y_prev {BS.hold_text(hold)}")
             if default != "simple":
                 G = SI.tiled_group(B_MAIN, N, M) if default == "tiled" else (
                     SI.MMA_GROUP)
@@ -1578,14 +1635,7 @@ def run(torch, oracles):
             with plain_iterate():
                 pms = cuda_ms(torch, lambda: SI.admm_iterate_shared(
                     *it_args, **kw2), 5)
-            op_bytes = 2 if name == "lowp" else 4
-            nbytes = ((N * N + 2 * M * N) * op_bytes
-                      + 4 * (2 * M + B_MAIN * (4 * N + 7 * M)))
-            if name == "f32":
-                b_ms, b_by = bound(iter_flops, nbytes, PEAK_F32)
-            else:  # bf16 operands: one product (lowp) or three (tf32)
-                b_ms, b_by = bound(iter_flops * (3 if name == "tf32" else 1),
-                                   nbytes, PEAK_BF16)
+            b_ms, b_by, _, _ = BS.chunk_bound(B_MAIN, N, M, name)
             iter_rows[name] = dict(
                 err=errs[default], route=default,
                 ms=statistics.median(ms[default]),
@@ -1689,10 +1739,9 @@ def run(torch, oracles):
                 f"[7] the main shape takes the {route} route")
         with plain_fused():
             p = FI.admm_iterate(*f_args)
-        scale = max(1.0, max(float(v.abs().max()) for v in p))
-        fused_flops = 2.0 * (2 * M * N + N * N) * B_MAIN * K_CHUNK
-        fused_bytes = 4 * B_MAIN * (N * N + M * N + 4 * N + 9 * M)
-        fused_bound, fused_by = bound(fused_flops, fused_bytes, PEAK_F32)
+            ctl = FI.admm_iterate(*f_args[:-1], K_CHUNK - 1)
+        fused_bound, fused_by, fused_flops, fused_bytes = BS.fused_bound(
+            B_MAIN, N, M)
         # each design's floor: a block per problem, one per SM, so
         # ceil(B / 132) waves, each first copying its operators from device
         # memory; an iteration's FMAs, or its shared-memory reads (staged:
@@ -1712,18 +1761,15 @@ def run(torch, oracles):
         for r in ("registers", "staged"):
             with fused_route(r):
                 k = FI.admm_iterate(*f_args)
-                torch.cuda.synchronize()
-                err = max(float((a - b).abs().max()) for a, b in zip(k, p))
-                require(err <= 1e-4 * scale,
-                        f"[7] fused kernel, {r} route, differs by {err}")
+                hold = BS.chunk_hold(f"[7] fused kernel, {r} route", k, p,
+                                     ctl, BS.CHUNK_TOL["fused"])
                 fused_ms[r] = cuda_ms(torch,
                                       lambda: FI.admm_iterate(*f_args), 5)
             if r == route:
-                fused_err = err
+                fused_err = hold["max_abs_err"]
             say(f"[7] fused chunk B={B_MAIN} K={K_CHUNK} f32, {r} route"
-                f"{' (the default)' if r == route else ''}: max |kernel - "
-                f"plain| {err:.3e} (scale {scale:.2f}, tolerance 1e-4 of "
-                f"it); {threads[r]} threads, "
+                f"{' (the default)' if r == route else ''}: "
+                f"{BS.hold_text(hold)}; {threads[r]} threads, "
                 f"{FI.smem_bytes(N, M, 4, r)} bytes of shared memory a "
                 f"block (rows {FI.staged_ld(N, 4)} values apart), one "
                 f"block per problem; ptxas: "
@@ -1738,7 +1784,7 @@ def run(torch, oracles):
             f"({fused_by}: {fused_flops / 1e9:.2f} GFLOP, "
             f"{fused_bytes / 1e6:.0f} MB); the floors include "
             f"{copy_ms:.3f} ms of operator copy in {waves} waves")
-        del sd, Rinv_b, f_args, k, p
+        del sd, Rinv_b, f_args, k, p, ctl
 
     lane_settings = Settings(eps_abs=EPS, eps_rel=EPS, verbose=False,
                              dtype=np.float32)
@@ -1785,6 +1831,7 @@ def run(torch, oracles):
     phase12, _ = phase12_diff(torch, reset_counts, counts, out_dir)
     phase13, _ = phase13_serve(torch, reset_counts, counts, out_dir)
     phase14, _ = phase14_mesh(torch, reset_counts, counts, out_dir)
+    phase15, _ = phase15_entry_points(torch, reset_counts, counts, out_dir)
 
     ir = iter_rows[iter_variant]
     iter_extra = {f"{v}_{key}": iter_rows[v][k2] for v in ("f32", "lowp")
@@ -1820,7 +1867,8 @@ def run(torch, oracles):
                  phase11_launches=phase11[r["name"]],
                  phase12_launches=phase12[r["name"]],
                  phase13_launches=phase13[r["name"]],
-                 phase14_launches=phase14[r["name"]])
+                 phase14_launches=phase14[r["name"]],
+                 phase15_launches=phase15[r["name"]])
     say(json.dumps({"kernels": rows}))
     say(card)
     print(json.dumps({"ok": True, "device": {

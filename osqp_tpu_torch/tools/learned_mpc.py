@@ -21,8 +21,9 @@ float32 gradients are not finite; the same batch in float64, whose
 backward must be within 1e-8 relative of the CPU's float64 recomputation;
 with ``--trace-dir``, one training step traced (``utils.profiling``) with
 the device's idle share in its forward and backward spans.
-(b) ``examples/learned_mpc.py``'s loop (B=32, n=8, m=12, float64, eps 1e-8,
-150 Adam steps); the final loss must be below 1/50 of the first.
+(b) ``osqp_tpu_torch/examples/learned_mpc.py`` (the JAX example's loop: B=32,
+n=8, m=12, float64, eps 1e-8, 150 Adam steps); the final loss must be
+below 1/50 of the first.
 A CPU rehearsal: ``--device cpu --B 64 --n 16 --m 32`` (seconds).
 """
 
@@ -37,7 +38,9 @@ from unittest import mock
 
 import numpy as np
 
-ADAM = dict(lr=0.05, b1=0.9, b2=0.999, eps=1e-8)
+from . import require
+from ..examples import learned_mpc as example
+from ..examples.learned_mpc import Adam
 
 
 def bench_batch(B, n, m, seed=0):
@@ -51,28 +54,6 @@ def bench_batch(B, n, m, seed=0):
     width = 1.0 + rng.rand(B, m)
     center = rng.randn(B, m) * 0.1
     return P, q, A, center - width, center + width
-
-
-class Adam:
-    """Plain Adam on one tensor, as ``examples/learned_mpc.py`` writes it;
-    ``step`` skips a non-finite gradient and says so."""
-
-    def __init__(self, torch, p):
-        self.p, self.t = p, 0
-        self.mom, self.vel = torch.zeros_like(p), torch.zeros_like(p)
-        self.torch = torch
-
-    def step(self, g):
-        if not bool(self.torch.isfinite(g).all()):
-            return False
-        b1, b2 = ADAM["b1"], ADAM["b2"]
-        self.t += 1
-        self.mom = b1 * self.mom + (1 - b1) * g
-        self.vel = b2 * self.vel + (1 - b2) * g * g
-        mh = self.mom / (1 - b1 ** self.t)
-        vh = self.vel / (1 - b2 ** self.t)
-        self.p = self.p - ADAM["lr"] * mh / (vh.sqrt() + ADAM["eps"])
-        return True
 
 
 def _sync(torch, device):
@@ -341,61 +322,15 @@ def traced_step(torch, device, B, n, m, trace_dir, say):
             for k, (w, b, i) in spans.items()}
 
 
-def example_loop(torch, device, steps, say, require):
-    """Phase 12b: ``examples/learned_mpc.py`` on ``device``."""
-    from osqp_tpu_torch import diff as D
-    from osqp_tpu_torch.settings import Settings
-
-    rng = np.random.RandomState(0)
-    B, n, m = 32, 8, 12
-    A = rng.randn(m, n) / np.sqrt(n)
-    l, u = -np.ones((B, m)), np.ones((B, m))
-    q = rng.randn(B, n)
-    M = rng.randn(n, n) / np.sqrt(n)
-    P_true = M.T @ M + 0.5 * np.eye(n)
-    layer = D.make_batched_qp_layer(
-        Settings(eps_abs=1e-8, eps_rel=1e-8, verbose=False,
-                 dtype=np.float64), device=device)
-    x_expert = layer(P_true, A, q, l, u)[0].detach()
-    eye = torch.eye(n, dtype=torch.float64, device=device)
-
-    def loss_of(Lp):
-        x, _ = layer(Lp @ Lp.T + 0.1 * eye, A, q, l, u)
-        return torch.mean((x - x_expert) ** 2)
-
-    opt = Adam(torch, 0.5 * eye)
-    t0 = time.perf_counter()
-    v0 = None
-    for _ in range(steps):
-        Lp = opt.p.clone().requires_grad_(True)
-        v = loss_of(Lp)
-        (g,) = torch.autograd.grad(v, Lp)
-        if v0 is None:
-            v0 = float(v.detach())
-        require(opt.step(g), "[12b] a non-finite gradient")
-    with torch.no_grad():
-        v_final = float(loss_of(opt.p))
-    seconds = time.perf_counter() - t0
-    say(f"[12b] examples/learned_mpc.py on {device}: {steps} Adam steps in "
-        f"{seconds:.1f} s ({seconds / steps * 1e3:.1f} ms a step); loss "
-        f"{v0:.3e} -> {v_final:.3e} ({v0 / v_final:.0f}x down)")
-    require(v_final < v0 / 50, "[12b] training failed to fit the expert")
-    return dict(first=v0, final=v_final, s=seconds, steps=steps)
-
-
 def run(torch, device="cuda", B=4096, n=128, m=256, steps=5,
-        example_steps=150, trace_dir=None, say=print, require=None):
+        example_steps=150, trace_dir=None, say=print):
     """Phase 12a and 12b; returns their numbers."""
-    if require is None:
-        def require(cond, what):
-            if not cond:
-                raise AssertionError(what)
     nums = dict(layer=layer_at_width(torch, device, B, n, m, steps, say,
                                      require))
     if trace_dir:
         nums["trace"] = traced_step(torch, device, B, n, m, trace_dir, say)
-    nums["example"] = example_loop(torch, device, example_steps, say,
-                                   require)
+    nums["example"] = example.main(device, example_steps, say)
+    example.check(nums["example"])
     return nums
 
 

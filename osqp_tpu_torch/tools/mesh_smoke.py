@@ -62,6 +62,8 @@ import time
 
 import numpy as np
 
+from . import require
+
 EPS = 1e-3
 ITER_SHARE = 0.999     # (b): lanes of equal iterations, at least
 X_REL = 1e-3           # (e): float32 x against the solution, relative
@@ -69,9 +71,6 @@ X_REL_F64 = 1e-9       # (e): ShardedQP's float64 x against the unsharded
 F64_EPS = 1e-9         # (e): eps of the float64 ShardedQP solves
 
 
-def _require(cond, what):
-    if not cond:
-        raise AssertionError(what)
 
 
 def _launches():
@@ -368,7 +367,7 @@ def _lanes(arr):
                 solved=int(np.sum(st[0] == 1)))
 
 
-def run(out_dir, cfg, say=print, require=_require):
+def run(out_dir, cfg, say=print):
     """All cells of ``cfg["cells"]``; returns {cell line name: row} and the
     three kernels' launches summed over every process."""
     import multiprocessing

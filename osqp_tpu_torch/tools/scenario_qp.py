@@ -28,6 +28,8 @@ import time
 
 import numpy as np
 
+from . import require
+
 EPS_SUB, EPS_CONS, GAMMA, MAX_OUTER = 1e-4, 1e-3, 2.0, 300
 
 
@@ -106,18 +108,12 @@ def loops(torch, data, k, dtype, device, say):
     return out
 
 
-def run(torch, device="cuda", S=4096, k=16, nv=112, m=256, say=print,
-        require=None):
-    """The whole of phase 12c; returns its numbers. ``require(cond,
-    what)`` raises on a failed check."""
+def run(torch, device="cuda", S=4096, k=16, nv=112, m=256, say=print):
+    """The whole of phase 12c; returns its numbers. A failed check
+    raises."""
     from osqp_tpu_torch.interface import Model
     from osqp_tpu_torch.parallel import ScenarioQP
     from osqp_tpu_torch.settings import Settings
-
-    if require is None:
-        def require(cond, what):
-            if not cond:
-                raise AssertionError(what)
 
     nums = {}
     data = make_scenario_problem(S=S, k=k, nv=nv, m=m, seed=0)

@@ -43,6 +43,7 @@ from pathlib import Path
 
 import numpy as np
 
+from . import require
 from ..batch import BatchedSolver
 from ..settings import Settings
 from .learned_mpc import bench_batch
@@ -79,11 +80,6 @@ def _wall(torch, device, fn):
     out = fn()
     _sync(torch, device)
     return (time.perf_counter() - t0) * 1e3, out
-
-
-def _require(cond, what):
-    if not cond:
-        raise AssertionError(what)
 
 
 def export(torch, device, B, n, m, directory, say=print):
@@ -261,7 +257,7 @@ def solver_artifact(torch, device, path, B, n, m, say=print):
             f"{live_ms[1]:.1f} ms), solved {nums[tag]['solved']}/{B}, mean "
             f"iterations {nums[tag]['iters_mean']:.1f}, statuses and "
             f"iterations equal to the live solve {same}, max |dx| {dx:.1e}")
-        _require(same, f"[13b] {tag}: the solver artifact differs from "
+        require(same, f"[13b] {tag}: the solver artifact differs from "
                  f"BatchedSolver.solve")
     return nums
 
@@ -287,7 +283,7 @@ def native_basic(say=print):
         f"{native.library_path().name} in {build_s:.1f} s; basic QP "
         f"{r.info.status}, x {np.round(r.x, 6).tolist()}, objective "
         f"{r.info.obj_val:.6f}, {r.info.iter} iterations")
-    _require(r.info.status == "Solved"
+    require(r.info.status == "Solved"
              and np.allclose(r.x, [0.0, 5.0], atol=1e-5)
              and abs(r.info.obj_val - 20.0) < 1e-5,
              "[13c] NativeModel missed the basic QP's solution")
@@ -343,10 +339,10 @@ def run(torch, device="cuda", B=4096, n=128, m=256, n_requests=N_REQUESTS,
             torch, nums["paths"]["prepared"], device, qs, l, u,
             lambda: admm_solve_shared.launches)
         nums.update(report_streams(live, dev_out, np_out, served, B, say))
-        _require(nums["equal_device"] and nums["equal_solve"]
+        require(nums["equal_device"] and nums["equal_solve"]
                  and nums["max_dx"] <= X_ATOL and nums["max_dy"] <= X_ATOL,
                  "[13a] a served stream differs from the live one")
-        _require(nums["solved_all"], "[13a] a lane was not Solved")
+        require(nums["solved_all"], "[13a] a lane was not Solved")
         nums["turns"] = in_turns(torch, device, nums["paths"]["prepared"],
                                  qs, l, u, B, n, m)
         nums["host_reads"] = host_reads(torch, device,

@@ -46,6 +46,8 @@ from unittest import mock
 import numpy as np
 import scipy.sparse as sp
 
+from . import require
+
 #: the configuration of record (scripts/bench_structured.py)
 NX, NU, T_MPC = 30, 10, 500
 EPS, MAX_ITER = 1e-3, 4000
@@ -201,11 +203,6 @@ def _solve_line(name, ms, out):
             f"iteration")
 
 
-def _require(cond, what):
-    if not cond:
-        raise AssertionError(what)
-
-
 def run_mpc(torch, device, say, problem, trace=True):
     """Part (a) on ``problem`` (:func:`control_qp_sparse`'s). Returns its
     numbers."""
@@ -230,7 +227,7 @@ def run_mpc(torch, device, say, problem, trace=True):
         for name, fn in (("first", lambda: st.solve(q, l, u)),
                          ("cold", lambda: st.solve(q, l, u))):
             ms, out = clock(fn)
-            _require(bool((out["status"] == 1).all()),
+            require(bool((out["status"] == 1).all()),
                      f"[11a] {kkt} {name} solve not Solved")
             row[name] = dict(ms=ms, iters=int(out["iter"][0]),
                              rho_updates=int(out["rho_updates"][0]))
@@ -242,7 +239,7 @@ def run_mpc(torch, device, say, problem, trace=True):
             return st.solve(1.01 * q, l, u, x0=xc, y0=yc)
 
         ms, out = clock(warm)
-        _require(bool((out["status"] == 1).all()),
+        require(bool((out["status"] == 1).all()),
                  f"[11a] {kkt} warm solve not Solved")
         row["warm"] = dict(ms=ms, iters=int(out["iter"][0]),
                            rho_updates=int(out["rho_updates"][0]))
@@ -257,7 +254,7 @@ def run_mpc(torch, device, say, problem, trace=True):
             say(f"[11a] float64 host check of the cold solve: primal "
                 f"residual {pri:.3f} of its threshold, dual {dua:.3f}, "
                 f"bound violation of z {viol:.2e}")
-            _require(ok, "[11a] the float64 host check failed")
+            require(ok, "[11a] the float64 host check failed")
             st_cr, warm_cr = st, warm
 
     # float64: the setup's factor solves R x = r (scipy spsolve on R)
@@ -334,8 +331,8 @@ def cr_residual_check(torch, st, l, u, say):
     say(f"[11a] float64 cr_solve with the setup's factor on "
         f"{st.device.type}: relative residual {rel:.2e} (gate 1e-10), "
         f"against scipy spsolve of the same R {diff:.2e}")
-    _require(rel <= 1e-10, "[11a] cr_solve's float64 residual above 1e-10")
-    _require(diff <= 1e-8, "[11a] cr_solve differs from scipy's spsolve")
+    require(rel <= 1e-10, "[11a] cr_solve's float64 residual above 1e-10")
+    require(diff <= 1e-8, "[11a] cr_solve differs from scipy's spsolve")
     return dict(rel_residual=rel, spsolve_rel_diff=diff)
 
 
@@ -389,7 +386,7 @@ def time_parts(torch, st, l, u, say):
         f"index_add_ (atomics) {nums['aty_index_add_ms'] * 1e3:.1f} us, "
         f"bytes at the memory rate {nums['aty_bound_ms'] * 1e3:.2f} us; "
         f"card form against the CPU's row-order form: {err:.1e} relative")
-    _require(err <= 1e-5, "[11a] the card's A'w differs from the CPU form")
+    require(err <= 1e-5, "[11a] the card's A'w differs from the CPU form")
     return nums
 
 
@@ -410,7 +407,7 @@ def run_batch(torch, device, say, problem, T_small=50):
     st = BlockTridiagSolver(device=device).setup(P=P, A=A, block=b, **kw)
     for name in ("first", "cold"):
         ms, out = clock(lambda: st.solve(qs, ls, us))
-        _require(bool((out["status"] == 1).all()),
+        require(bool((out["status"] == 1).all()),
                  f"[11b] a lane of the {B_LANES}-lane {name} solve is not "
                  f"Solved")
         nums[f"batch_{name}"] = dict(ms=ms, iters=int(out["iter"].max()))
@@ -447,8 +444,8 @@ def run_batch(torch, device, say, problem, T_small=50):
         f"each step: {ms_roll:.1f} ms, iterations "
         f"{roll['iter'][:, 0].cpu().tolist()}; the host loop of solve "
         f"{ms_loop:.1f} ms; statuses and iterations equal: {same}")
-    _require(bool((roll["status"] == 1).all()), "[11b] rollout not Solved")
-    _require(same, "[11b] the rollout differs from the host loop")
+    require(bool((roll["status"] == 1).all()), "[11b] rollout not Solved")
+    require(same, "[11b] the rollout differs from the host loop")
 
     stp = BlockTridiagSolver(device=device).setup(P=P, A=A, block=b,
                                                   polish=True, **kw)
@@ -459,7 +456,7 @@ def run_batch(torch, device, say, problem, T_small=50):
     say(f"[11b] polish=True on (a): status {int(out['status'][0])}, "
         f"status_polish {int(out['status_polish'][0])}, {ms:.1f} ms with "
         f"the polish")
-    _require(int(out["status"][0]) == 1 and int(out["status_polish"][0]) != 0,
+    require(int(out["status"][0]) == 1 and int(out["status_polish"][0]) != 0,
              "[11b] the polished solve is not Solved")
 
     Ps, qs_, As, ls_, us_ = control_qp_sparse(T=T_small)
@@ -479,7 +476,7 @@ def run_batch(torch, device, say, problem, T_small=50):
         f"{int(ref['status'][0])}), {int(out['iter'][0])} iterations "
         f"(unlimited {int(ref['iter'][0])}) in {sb.call_count} chunk(s), "
         f"{ms:.1f} ms")
-    _require(int(out["status"][0]) == int(ref["status"][0]) == 1,
+    require(int(out["status"][0]) == int(ref["status"][0]) == 1,
              "[11b] the time-limited status differs")
     return nums
 
@@ -521,7 +518,7 @@ def run_band(torch, devices, say, n=CHAIN_N, bw=CHAIN_BW):
             f"{ms_cold / max(r.info.iter, 1):.3f} ms each), warm after "
             f"update(q=0.9 q) {ms_warm:.1f} ms ({rw.info.iter} iterations);"
             f" {r.info.status}/{rw.info.status}, float64 host check {ok}")
-        _require(r.info.status == rw.info.status == "Solved" and ok,
+        require(r.info.status == rw.info.status == "Solved" and ok,
                  f"[11c] BandedModel on {dev} not Solved")
     dev = devices[0]
     sm = SparseModel(device=dev).setup(P=P, q=q, A=A, l=l, u=u,
@@ -534,7 +531,7 @@ def run_band(torch, devices, say, n=CHAIN_N, bw=CHAIN_BW):
         f"routed to the banded engine: {routed}; {rs.info.status}, "
         f"{rs.info.iter} iterations (BandedModel's first solve: "
         f"{nums[dev]['first_status']}, {nums[dev]['first_iters']})")
-    _require(routed and rs.info.status == nums[dev]["first_status"]
+    require(routed and rs.info.status == nums[dev]["first_status"]
              and rs.info.iter == nums[dev]["first_iters"],
              "[11c] SparseModel's banded route differs from BandedModel")
     return nums

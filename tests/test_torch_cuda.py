@@ -1166,3 +1166,98 @@ def test_mesh_on_card_matches_unsharded(dev, tmp_path, world, backend):
                 assert got[k] == want[k], (route, k)
             np.testing.assert_allclose(got["x"], want["x"], atol=1e-8)
             np.testing.assert_allclose(got["y"], want["y"], atol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# the shape sweep's larger shapes (tools/bench_shapes.py): each default route
+# ---------------------------------------------------------------------------
+
+_LARGE = [(256, 512), (512, 1024)]
+_LARGE_IDS = ["256x512", "512x1024"]
+
+
+@pytest.mark.parametrize("n,m", _LARGE, ids=_LARGE_IDS)
+@pytest.mark.parametrize("variant", ["f32", "tf32", "f64"])
+def test_leg_default_route_at_large_shapes(dev, variant, n, m):
+    """The leg on the route and at the group that B=4096 takes at these
+    shapes (float32 the tiled route; tf32 and float64 the simple one,
+    float64 one lane a block at n=512), on 37 lanes (a ragged last group):
+    the card tests' tolerances of each dtype."""
+    dtype = torch.float64 if variant == "f64" else torch.float32
+    tf32 = variant == "tf32"
+    G = SK.pick_group(4096, n, m, 8 if variant == "f64" else 4, tf32)
+    if variant == "f64" and n == 512:
+        assert G == 1
+    ops, sc = _leg_args(dev, dtype, B=37, n=n, m=m, seed=6)
+    before = SK.admm_solve_shared.launches
+    k, p = _both(ops, sc, G, tf32=tf32)
+    assert SK.admm_solve_shared.launches == before + 1
+    np.testing.assert_array_equal(k[5][:, 0], p[5][:, 0])
+    if variant == "f64":
+        np.testing.assert_array_equal(k[5][:, 1], p[5][:, 1])
+        for a, b in zip(k[:5], p[:5]):
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
+    else:
+        np.testing.assert_allclose(k[0], p[0], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,m", _LARGE, ids=_LARGE_IDS)
+def test_iterate_lowp_simple_route_at_large_shapes(dev, n, m):
+    """Mixed precision past the mma route's fit: bf16 products on the
+    simple route, at the group B=4096 takes, 37 lanes, a NaN lane.
+    Tolerance 5e-2 of max(1, max |x|) (``chip_smoke.py`` phase 5's for
+    lowp: at these widths a last-bit difference of a float32 sum rounds
+    more values to the neighbouring bf16 one than at n=40)."""
+    from osqp_tpu_torch.ops import shared_iter as SI
+    assert SI.pick_route(n, m, torch.float32, lowp=True) == "simple"
+    G = SI.pick_group(4096, n, m, 4)
+    ops, sigma, alpha = _iter_args(dev, torch.float32, 37, n=n, m=m,
+                                   nan_lane=5)
+    live = -(-37 // G)
+    before = SI.admm_iterate_shared.route_launches["simple"]
+    k = SI._cuda_iterate(*ops, sigma, alpha, 25, live, G, lowp=True)
+    assert SI.admm_iterate_shared.route_launches["simple"] == before + 1
+    p = SI.admm_iterate_shared_reference(*ops, sigma, alpha, 25, live, G,
+                                         lowp=True)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _scale_err(a, b) <= 5e-2
+    assert torch.isnan(k[0][5]).all()
+    assert not torch.isnan(k[0][:5]).any() and not torch.isnan(k[0][6:]).any()
+
+
+@pytest.mark.parametrize("n,m", _LARGE, ids=_LARGE_IDS)
+def test_fused_device_route_at_large_shapes(dev, n, m):
+    """Float32 past the staged tile takes the device-memory route: 6
+    problems, 25 iterations, a NaN problem that stays NaN and alone.
+    Tolerance 1e-4 of max(1, max |x|) (summation order)."""
+    from osqp_tpu_torch.ops import fused_iter as FI
+    assert FI.pick_route(n, m, 4) == "device"
+    ops = _fused_args(dev, torch.float32, 6, n, m, seed=6, nan_lane=2)
+    before = FI.admm_iterate.launches
+    k = FI._cuda_iterate(*ops, 1e-6, 1.6, 25)
+    assert FI.admm_iterate.launches == before + 1
+    p = FI.admm_iterate_reference(*ops, 1e-6, 1.6, 25)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert _scale_err(a, b) <= 1e-4
+    assert torch.isnan(k[0][2]).all()
+    assert torch.isfinite(k[0][torch.arange(6, device=dev) != 2]).all()
+
+
+def test_shared_solve_at_n256_matches_cpu_statuses(dev):
+    """The bench generator at n=256, m=512, 256 lanes: the float32 solve
+    on the card (leg kernel, G=16) ends with the statuses of the float64
+    solve on the CPU, every lane Solved."""
+    from osqp_tpu_torch.tools.learned_mpc import bench_batch
+    P, q, A, l, u = bench_batch(256, 256, 512)
+    s = dict(eps_abs=1e-3, eps_rel=1e-3)
+    before = SK.admm_solve_shared.launches
+    gpu = BatchedSolver(Settings(dtype=np.float32, **s), kkt_mode="shared",
+                        device=dev).solve(P, q, A, l, u)
+    assert SK.admm_solve_shared.launches > before
+    cpu = BatchedSolver(Settings(dtype=np.float64, **s),
+                        **CPU_SHARED).solve(P, q, A, l, u)
+    st = cpu.status.numpy()
+    np.testing.assert_array_equal(gpu.status.cpu().numpy(), st)
+    assert (st == C.SOLVED).all()

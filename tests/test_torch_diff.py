@@ -51,6 +51,7 @@ from osqp_tpu_torch import constants as C
 from osqp_tpu_torch.batch import BatchedSolver
 from osqp_tpu_torch.core import solve as t_solve
 from osqp_tpu_torch.settings import Settings as TSettings
+from test_torch_examples import in_fresh_jax
 from test_torch_model_basic import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -379,10 +380,12 @@ def test_jit_vmap_compose(layer):
     np.testing.assert_allclose(gb[2], loop, atol=2e-6)
 
 
-def test_gradient_descent_drives_solution_to_target():
-    """Tune q by gradient descent so that x*(q) hits a target inside the
-    feasible set; the loss drops by orders of magnitude, and the port's
-    descent follows the reference's."""
+#: the gradient descent test's settings (those of tests/test_diff.py's)
+DESCENT = dict(eps_abs=1e-9, eps_rel=1e-9, max_iter=20000, verbose=False,
+               dtype=np.float64)
+
+
+def _descent_problem():
     rng = np.random.RandomState(11)
     n, m = 4, 6
     M = rng.randn(n, n)
@@ -391,35 +394,52 @@ def test_gradient_descent_drives_solution_to_target():
     l = -2.0 * np.ones(m)
     u = 2.0 * np.ones(m)
     target = 0.05 * rng.randn(n)
-    kw = dict(eps_abs=1e-9, eps_rel=1e-9, max_iter=20000, verbose=False,
-              dtype=np.float64)
-    th0 = rng.randn(n)
-    tlayer = TD.make_qp_layer(TSettings(**kw), device="cpu")
-    jlayer = JD.make_qp_layer(JSettings(**kw))
-    Pt = torch.tensor(P)
+    return P, A, l, u, target, rng.randn(n)
 
-    def loss_t(theta):
-        x, _ = tlayer(P, -Pt @ theta, A, l, u)
-        return torch.sum((x - torch.tensor(target)) ** 2)
+
+def jax_descent(steps=60):
+    """The reference layer's descent of the test below, its value and
+    gradient jitted: each step's gradient and the last theta."""
+    P, A, l, u, target, th0 = _descent_problem()
+    jlayer = JD.make_qp_layer(JSettings(**DESCENT))
 
     def loss_j(theta):
         x, _ = jlayer(P, -jnp.asarray(P) @ theta, A, l, u)
         return jnp.sum((x - jnp.asarray(target)) ** 2)
 
     vg = jax.jit(jax.value_and_grad(loss_j))
+    thj, grads = jnp.asarray(th0), []
+    for _ in range(steps):
+        _, gj = vg(thj)
+        grads.append(np.asarray(gj))
+        thj = thj - 0.4 * gj
+    return dict(grads=grads, theta=np.asarray(thj))
+
+
+def test_gradient_descent_drives_solution_to_target():
+    """Tune q by gradient descent so that x*(q) hits a target inside the
+    feasible set; the loss drops by orders of magnitude, and the port's
+    descent follows the reference's."""
+    P, A, l, u, target, th0 = _descent_problem()
+    tlayer = TD.make_qp_layer(TSettings(**DESCENT), device="cpu")
+    Pt = torch.tensor(P)
+
+    def loss_t(theta):
+        x, _ = tlayer(P, -Pt @ theta, A, l, u)
+        return torch.sum((x - torch.tensor(target)) ** 2)
+
+    # the reference in a fresh interpreter (test_torch_examples.in_fresh_jax)
+    ref = in_fresh_jax("test_torch_diff", "jax_descent", 60)
     th = torch.tensor(th0, requires_grad=True)
-    thj = jnp.asarray(th0)
     l0 = float(loss_t(th).detach())
-    for _ in range(60):
+    for gj in ref["grads"]:
         val = loss_t(th)
         (g,) = torch.autograd.grad(val, th)
-        valj, gj = vg(thj)
         np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=GRTOL,
                                    atol=GATOL)
         th = (th - 0.4 * g).detach().requires_grad_(True)
-        thj = thj - 0.4 * gj
     assert float(val.detach()) < 1e-8 * max(1.0, l0)
-    np.testing.assert_allclose(th.detach().numpy(), np.asarray(thj),
+    np.testing.assert_allclose(th.detach().numpy(), np.asarray(ref["theta"]),
                                rtol=1e-6, atol=1e-9)
 
 
