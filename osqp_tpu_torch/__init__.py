@@ -32,7 +32,10 @@ slice by slice and never imports jax. Ported so far:
   whose backward is the masked-KKT adjoint;
 * ``parallel.ScenarioQP`` (``parallel/scenario.py``): consensus ADMM for
   two-stage scenario QPs over the shared-structure engine, on one device;
-* ``utils.profiling``: ``torch.profiler`` traces and named spans;
+* ``utils.profiling``: ``torch.profiler`` traces, named spans (the
+  batched path's ``osqp.*`` spans, recorded, with a log of them, only
+  while a profiler records) and the program's counters (host reads,
+  refactors);
 * serving artifacts (``serve.py``): ``export_prepared``/``export_solver``
   write a solver's workspace or settings to a file, ``load_artifact``
   serves it (``PreparedServer``, ``SolverServer``);

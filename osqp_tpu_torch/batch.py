@@ -54,6 +54,7 @@ from .shared_core import (
     solve_shared,
 )
 from .types import QPData, SolveOutput, solution_present
+from .utils import profiling
 
 
 def _sanitize_starts(x0, y0):
@@ -89,6 +90,7 @@ def _nanfill(out: SolveOutput) -> SolveOutput:
 def _rho_value(rho0):
     """A caller's rho override: a scalar, or per-lane values (median)."""
     if torch.is_tensor(rho0):
+        profiling.count("host_read.rho0")
         rho0 = rho0.detach().cpu().numpy()
     return float(np.median(np.asarray(rho0)) if np.ndim(rho0) else rho0)
 
@@ -141,6 +143,7 @@ def _shared_polish(Pm, A, q, l, u, dyn, settings, out) -> SolveOutput:
     return merge_polish(out, pol)
 
 
+@profiling.spanned("osqp.api.prepared")
 def prepared_request(prep: dict, settings: Settings, q, l, u, x0, y0,
                      factor: FactorCache):
     """One re-solve of a prepared workspace (``prep``: the unscaled ``P``
@@ -243,6 +246,7 @@ class BatchedSolver:
                 rho_vec=torch.zeros_like(f.rho_vec),
                 rho_inv=torch.zeros_like(f.rho_inv))
 
+    @profiling.spanned("osqp.api.solve")
     def solve(self, Pm, q, A, l, u, x0=None, y0=None,
               rho0=None) -> SolveOutput:
         """Solve the batch: q (B,n), l/u (B,m), ``Pm``/``A`` (n,n)/(m,n)
@@ -364,6 +368,7 @@ class BatchedSolver:
                               _rebase(out.next_rho, this))
                     # the host copy waits for the chunk, so the clock
                     # below reads after its results exist
+                    profiling.count("host_read.time_limit", 2)
                     st = out.status.cpu().numpy()
                     it = out.iter.cpu().numpy().astype(np.int64)
                     if out_acc is None:

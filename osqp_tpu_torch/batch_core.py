@@ -32,6 +32,7 @@ from .ops.fused_iter import admm_iterate
 from .ops.shared_iter import dot3, split_bf16
 from .polish import polish
 from .types import DynParams, QPData, ScalingData, SolveOutput
+from .utils import profiling
 
 _DIV_GUARD = 1e-10
 #: tf32 stall detector: a check that improves the best live lane's
@@ -62,6 +63,7 @@ def _batched_factor(P, A, sigma, rho_vec, kkt_mode: str):
     """Factor the reduced KKT matrix R = P + σI + AᵀρA of every lane:
     its Cholesky factor ("chol"), or R⁻¹ through that factor and two
     triangular solves ("inverse", "fused")."""
+    profiling.count("refactor")
     L = _batched_chol(P, A, sigma, rho_vec)
     if kkt_mode == "chol":
         return L
@@ -135,6 +137,7 @@ class _Adapt:
                                         self.next_rho)
         self.rho_dir = torch.where(trig, dir_new, self.rho_dir)
         self.rho_estimate = torch.where(live, est, self.rho_estimate)
+        profiling.count("host_read.lane_rho")
         if not bool(trig.any()):
             return False
         rb = torch.where(trig, est, self.rho_bar)
@@ -247,12 +250,14 @@ def solve_batch_scaled(sdata: QPData, scal: ScalingData, dyn: DynParams,
                                 min=_DIV_GUARD)
             ratio = torch.maximum(res.pri_res / den_p, res.dua_res / den_d)
             ratio = torch.where(status == C.RUNNING, ratio, inf)
+            profiling.count("host_read.lane_precision")
             rmin = float(torch.amin(ratio))
             fine = rmin > _LOWP_STALL_FRAC * last_ratio
             last_ratio = min(rmin, last_ratio)
         pri_res = torch.where(live, res.pri_res, pri_res)
         dua_res = torch.where(live, res.dua_res, dua_res)
         if do_check:
+            profiling.count("host_read.lane_running")
             any_running = bool((status == C.RUNNING).any())
     return _finalize(sdata, scal, dyn, x, y, z, x_prev, y_prev, status,
                      iters, pri_res, dua_res, it, ad)
@@ -301,6 +306,13 @@ def _finalize(sdata, scal, dyn, x, y, z, x_prev, y_prev, status, iters,
         rho_dir=ad.rho_dir, rho_gap=ad.rho_gap, next_rho=ad.next_rho)
 
 
+def _any_running(status) -> bool:
+    """Whether a lane still runs: a host read."""
+    profiling.count("host_read.lane_running")
+    return bool((status == C.RUNNING).any())
+
+
+@profiling.spanned("osqp.driver.fused")
 @with_precision
 def solve_batch_fused(sdata: QPData, scal: ScalingData, dyn: DynParams,
                       x0, y0, z0) -> SolveOutput:
@@ -323,7 +335,7 @@ def solve_batch_fused(sdata: QPData, scal: ScalingData, dyn: DynParams,
     dua_res = torch.full((B,), inf, dtype=dtype, device=dev)
 
     it = 0
-    while it < dyn.max_iter and bool((status == C.RUNNING).any()):
+    while it < dyn.max_iter and _any_running(status):
         live = status == C.RUNNING
         lx = live[:, None]
         K = min(chunk, dyn.max_iter - it)
@@ -339,17 +351,20 @@ def solve_batch_fused(sdata: QPData, scal: ScalingData, dyn: DynParams,
         y = torch.where(lx, yk, y)
         z = torch.where(lx, zk, z)
         it += K
-        status_new, res = _check(sdata, scal, dyn, x, y, z, x - x_prev,
-                                 y - y_prev)
+        with profiling.annotate("osqp.driver.check"):
+            status_new, res = _check(sdata, scal, dyn, x, y, z, x - x_prev,
+                                     y - y_prev)
         if dyn.check_termination > 0:
             status = torch.where(live, status_new, status)
         iters = torch.where(live & (status != C.RUNNING), it, iters)
         if dyn.adaptive_rho != 0 and it % rho_int == 0:
-            ad.step(it, live, status, res)
+            with profiling.annotate("osqp.driver.rho"):
+                ad.step(it, live, status, res)
         pri_res = torch.where(live, res.pri_res, pri_res)
         dua_res = torch.where(live, res.dua_res, dua_res)
-    return _finalize(sdata, scal, dyn, x, y, z, x_prev, y_prev, status,
-                     iters, pri_res, dua_res, it, ad)
+    with profiling.annotate("osqp.driver.finalize"):
+        return _finalize(sdata, scal, dyn, x, y, z, x_prev, y_prev, status,
+                         iters, pri_res, dua_res, it, ad)
 
 
 def merge_polish(out: SolveOutput, pol) -> SolveOutput:

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from ..linalg import with_precision
+from ..utils import profiling
 from ._hopper import SMEM_LIMIT
 
 #: Threads per block, columns per pass of the column products, passes and
@@ -195,6 +196,7 @@ def _cuda_iterate(Rinv, A, q, l, u, rho_vec, rho_inv, x0, y0, z0, sigma,
     return tuple(outs)
 
 
+@profiling.spanned("osqp.kernel.fused")
 @with_precision
 def admm_iterate(Rinv, A, q, l, u, rho_vec, rho_inv, x, y, z, sigma, alpha,
                  K):

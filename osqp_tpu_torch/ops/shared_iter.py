@@ -39,6 +39,7 @@ import ctypes
 import torch
 
 from ..linalg import with_precision
+from ..utils import profiling
 from . import _hopper
 from ._hopper import SMEM_LIMIT
 
@@ -380,6 +381,7 @@ def _cuda_iterate(Rinv_a, A, RAt_a, rho, rho_inv, q, l, u, x0, y0, z0,
     return tuple(outs)
 
 
+@profiling.spanned("osqp.kernel.chunk")
 @with_precision
 def admm_iterate_shared(Rinv, A, rho_vec, rho_inv, q, l, u, x, y, z,
                         sigma, alpha, K, group=None, live_groups=None,

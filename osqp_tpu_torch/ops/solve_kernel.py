@@ -35,6 +35,7 @@ import torch
 
 from .. import constants as C
 from ..linalg import with_precision
+from ..utils import profiling
 from . import _hopper
 from ._hopper import SMEM_LIMIT
 from .shared_iter import dot3, split_bf16
@@ -383,6 +384,7 @@ def _cuda_leg(Rinv_a, RAt_a, P, A, At, rho, rho_inv, Einv, Dinv, D_r, E_r,
     return tuple(outs)
 
 
+@profiling.spanned("osqp.kernel.leg")
 @with_precision
 def admm_solve_shared(Rinv, P, A, rho_vec, rho_inv, Einv, Dinv, cinv,
                       q, l, u, x, y, z, sigma, alpha, max_iter, check_every,
@@ -424,6 +426,10 @@ def admm_solve_shared(Rinv, P, A, rho_vec, rho_inv, Einv, Dinv, cinv,
     def f(v):
         return torch.as_tensor(v, dtype=dt).item()
 
+    # cinv and cinv_r are the scaling's, on the solve's device; the other
+    # scalars are Python numbers or 0-d CPU tensors
+    profiling.count("host_read.leg_scalars", sum(
+        torch.is_tensor(v) and v.device == dev for v in (cinv, cinv_r)))
     sc = LegScalars(
         sigma=f(sigma), alpha=f(alpha), max_iter=int(max_iter),
         check_every=int(check_every), eps_abs=f(eps_abs),

@@ -45,6 +45,7 @@ from .core import _mtv, _mv, residual_norms
 from .linalg import cg_solve, chol_factor, chol_solve, sym, with_precision
 from .parallel import comm
 from .types import DynParams, QPData, ScalingData
+from .utils import profiling
 
 
 class PolishOutput(NamedTuple):
@@ -208,6 +209,7 @@ def polish(sdata: QPData, scal: ScalingData, dyn: DynParams, delta,
         for _ in range(_POLISH_ROUNDS - 1):
             low2, upp2, changed = repair(low, upp, x, y)
             cont = cont & changed
+            profiling.count("host_read.polish")
             if not bool(cont.any()):
                 break
             x2, y2 = solve_with_set(low2, upp2)

@@ -37,6 +37,7 @@ from .ops.solve_kernel import admm_solve_shared, pick_group
 from .parallel import comm
 from .scaling import _limit_scaling
 from .types import DynParams, SolveOutput
+from .utils import profiling
 
 _DIV_GUARD = 1e-10
 
@@ -225,7 +226,9 @@ def _chol_inverse(R):
     return torch.linalg.solve_triangular(L.mT, w, upper=True)
 
 
+@profiling.spanned("osqp.driver.refactor")
 def _shared_inverse(P, A, sigma, rho_vec):
+    profiling.count("refactor")
     return _chol_inverse(_shared_R(P, A, sigma, rho_vec))
 
 
@@ -243,8 +246,10 @@ def _init_factor(P, A, sigma, loose, eq, factor0, rho_dyn):
     rho0 = torch.clamp(factor0.rho_bar.to(dtype=P.dtype, device=P.device),
                        C.RHO_MIN, C.RHO_MAX)
     rho_vec, rho_inv = _shared_rho_vec(loose, eq, rho0)
-    reuse = (factor0.rho_vec.shape == rho_vec.shape
-             and bool(torch.all(rho_vec == factor0.rho_vec)))
+    reuse = factor0.rho_vec.shape == rho_vec.shape
+    if reuse:
+        profiling.count("host_read.init_factor")
+        reuse = bool(torch.all(rho_vec == factor0.rho_vec))
     Rinv = factor0.Rinv if reuse else _shared_inverse(P, A, sigma, rho_vec)
     return rho_vec, rho_inv, Rinv, rho0
 
@@ -299,6 +304,7 @@ def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
     hit_max = status == C.RUNNING
     dx = x - x_prev
     dy = y - y_prev
+    profiling.count("host_read.finalize_max_iter")
     if bool(hit_max.any()):
         one = torch.ones((), dtype=dtype)
         st_a, rs_a = shared_check(P, A, qb, lb, ub, scal, dyn, x, y, z, dx,
@@ -334,6 +340,7 @@ def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
     dinf = ((status == C.DUAL_INFEASIBLE)
             | (status == C.DUAL_INFEASIBLE_INACCURATE))
     # certificates cost four batched matmuls: only when some lane needs one
+    profiling.count("host_read.finalize_cert")
     if bool((pinf | dinf).any()):
         _, prim_cert = shared_primal_inf(A, lb, ub, scal, dy,
                                          dyn.eps_prim_inf)
@@ -354,6 +361,7 @@ def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
 # Solve loops
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("osqp.driver.shared")
 @with_precision
 def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
                        x0, y0, z0, group=None, factor0: FactorCache = None,
@@ -398,9 +406,10 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     compact = B >= 2 * G  # pointless below two groups
     inf = float("inf")
 
-    loose, eq = _classify_rows(lb, ub, mesh)
-    rho_vec, rho_inv, Rinv, rho_bar = _init_factor(
-        P, A, dyn.sigma, loose, eq, factor0, dyn.rho_bar)
+    with profiling.annotate("osqp.driver.init_factor"):
+        loose, eq = _classify_rows(lb, ub, mesh)
+        rho_vec, rho_inv, Rinv, rho_bar = _init_factor(
+            P, A, dyn.sigma, loose, eq, factor0, dyn.rho_bar)
     chunk = max(dyn.check_termination, 1)
     # round half to even, as jnp.round
     rho_int = max(round(max(dyn.adaptive_rho_interval, 1) / chunk), 1) * chunk
@@ -444,9 +453,10 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
             y = torch.where(lx, yk, y)
             z = torch.where(lx, zk, z)
             it += K
-            status_new, res = shared_check(
-                P, A, qc, lc, uc, scal, dyn, x, y, z, x - x_prev,
-                y - y_prev, torch.ones((), dtype=dtype), accurate=True)
+            with profiling.annotate("osqp.driver.check"):
+                status_new, res = shared_check(
+                    P, A, qc, lc, uc, scal, dyn, x, y, z, x - x_prev,
+                    y - y_prev, torch.ones((), dtype=dtype), accurate=True)
             if dyn.check_termination > 0:
                 if low:
                     # bf16 phase: no infeasibility certificates yet
@@ -483,35 +493,38 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
         still = status == C.RUNNING
 
         if dyn.adaptive_rho != 0 and it % rho_int == 0:
-            pri_rel = res.pri_res / torch.clamp(res.pri_norm, min=_DIV_GUARD)
-            dua_rel = torch.clamp(
-                res.dua_res / torch.clamp(res.dua_norm, min=_DIV_GUARD),
-                min=_DIV_GUARD)
-            est_lane = torch.clamp(rho_bar * torch.sqrt(pri_rel / dua_rel),
-                                   C.RHO_MIN, C.RHO_MAX)
-            est_lane = torch.where(torch.isfinite(est_lane), est_lane,
-                                   rho_bar)
-            est, any_t = rho_aggregate(est_lane, still,
-                                       order if packed else None, rho_bar,
-                                       mesh)
-            tol = dyn.adaptive_rho_tolerance
-            any_still, hi, lo, up = torch.stack(
-                [any_t, est > rho_bar * tol, est < rho_bar / tol,
-                 est > rho_bar]).tolist()
-            trig = (any_still and (dyn.rho_backoff == 0 or it >= next_rho)
-                    and (hi or lo))
-            dir_new = 1 if up else -1
-            if trig:
-                rho_vec, rho_inv = _shared_rho_vec(loose, eq, est)
-                Rinv = _shared_inverse(P, A, dyn.sigma, rho_vec)
-                rho_bar = est
-                rho_updates += 1
-                if dyn.rho_backoff != 0:  # ping-pong back-off
-                    if dir_new * rho_dir < 0:
-                        rho_gap = min(rho_gap * 2, 1 << 24)
-                    next_rho = it + rho_gap
-                rho_dir = dir_new
-            rho_estimate = est
+            with profiling.annotate("osqp.driver.rho"):
+                pri_rel = res.pri_res / torch.clamp(res.pri_norm,
+                                                    min=_DIV_GUARD)
+                dua_rel = torch.clamp(
+                    res.dua_res / torch.clamp(res.dua_norm, min=_DIV_GUARD),
+                    min=_DIV_GUARD)
+                est_lane = torch.clamp(rho_bar * torch.sqrt(pri_rel / dua_rel),
+                                       C.RHO_MIN, C.RHO_MAX)
+                est_lane = torch.where(torch.isfinite(est_lane), est_lane,
+                                       rho_bar)
+                est, any_t = rho_aggregate(est_lane, still,
+                                           order if packed else None, rho_bar,
+                                           mesh)
+                tol = dyn.adaptive_rho_tolerance
+                profiling.count("host_read.rho")
+                any_still, hi, lo, up = torch.stack(
+                    [any_t, est > rho_bar * tol, est < rho_bar / tol,
+                     est > rho_bar]).tolist()
+                trig = (any_still and (dyn.rho_backoff == 0 or it >= next_rho)
+                        and (hi or lo))
+                dir_new = 1 if up else -1
+                if trig:
+                    rho_vec, rho_inv = _shared_rho_vec(loose, eq, est)
+                    Rinv = _shared_inverse(P, A, dyn.sigma, rho_vec)
+                    rho_bar = est
+                    rho_updates += 1
+                    if dyn.rho_backoff != 0:  # ping-pong back-off
+                        if dir_new * rho_dir < 0:
+                            rho_gap = min(rho_gap * 2, 1 << 24)
+                        next_rho = it + rho_gap
+                    rho_dir = dir_new
+                rho_estimate = est
 
         if low:
             # precision switch: closeness ratio of the fastest running lane;
@@ -524,6 +537,7 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
             ratio = torch.maximum(res.pri_res / den_p, res.dua_res / den_d)
             ratio = torch.where(still, ratio, inf)
             rmin = comm.min(torch.amin(ratio), mesh)
+            profiling.count("host_read.precision")
             fine = bool((rmin > _LOWP_STALL_FRAC * last_ratio)
                         | (lowp & (rmin < _LOWP_SWITCH_RATIO)))
             last_ratio = torch.minimum(rmin, last_ratio)
@@ -531,6 +545,7 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
         pri_res = torch.where(live, res.pri_res, pri_res)
         dua_res = torch.where(live, res.dua_res, dua_res)
         n_here = still.sum()
+        profiling.count("host_read.running")
         n_local, n_running = torch.stack(
             [n_here, comm.sum(n_here, mesh)]).tolist()
 
@@ -539,31 +554,33 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
         # not when its lanes just finished, since they stay put
         if (compact and 0 < n_local
                 and -(-n_local // G) < -(-nlive // G)):
-            perm = torch.argsort((~still).to(torch.int32), stable=True)
-            x, y, z = x[perm], y[perm], z[perm]
-            x_prev, y_prev = x_prev[perm], y_prev[perm]
-            status, iters = status[perm], iters[perm]
-            pri_res, dua_res = pri_res[perm], dua_res[perm]
-            qc, lc, uc = qc[perm], lc[perm], uc[perm]
-            order = order[perm]
-            nlive = n_local
-            packed = True
+            with profiling.annotate("osqp.driver.compact"):
+                perm = torch.argsort((~still).to(torch.int32), stable=True)
+                x, y, z = x[perm], y[perm], z[perm]
+                x_prev, y_prev = x_prev[perm], y_prev[perm]
+                status, iters = status[perm], iters[perm]
+                pri_res, dua_res = pri_res[perm], dua_res[perm]
+                qc, lc, uc = qc[perm], lc[perm], uc[perm]
+                order = order[perm]
+                nlive = n_local
+                packed = True
 
-    if packed:
-        # restore the original lane order: order[slot] = original index
-        def unpack(v):
-            out = torch.empty_like(v)
-            out[order] = v
-            return out
+    with profiling.annotate("osqp.driver.finalize"):
+        if packed:
+            # restore the original lane order: order[slot] = original index
+            def unpack(v):
+                out = torch.empty_like(v)
+                out[order] = v
+                return out
 
-        x, y, z = unpack(x), unpack(y), unpack(z)
-        x_prev, y_prev = unpack(x_prev), unpack(y_prev)
-        status, iters = unpack(status), unpack(iters)
-        pri_res, dua_res = unpack(pri_res), unpack(dua_res)
+            x, y, z = unpack(x), unpack(y), unpack(z)
+            x_prev, y_prev = unpack(x_prev), unpack(y_prev)
+            status, iters = unpack(status), unpack(iters)
+            pri_res, dua_res = unpack(pri_res), unpack(dua_res)
 
-    (status, iters, pri_res, dua_res, xu, yu, zu, prim_cert, dual_cert,
-     obj) = _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev,
-                      status, iters, pri_res, dua_res, it)
+        (status, iters, pri_res, dua_res, xu, yu, zu, prim_cert, dual_cert,
+         obj) = _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev,
+                          status, iters, pri_res, dua_res, it)
     out = SolveOutput(
         x=xu, y=yu, z=zu, status=status, iter=iters,
         pri_res=pri_res, dua_res=dua_res, obj_val=obj,
@@ -579,6 +596,7 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     return out
 
 
+@profiling.spanned("osqp.driver.shared")
 @with_precision
 def solve_batch_shared_fixed(P, A, qb, lb, ub, scal: SharedScaling,
                              dyn: DynParams, x0, y0, z0, group=None,
@@ -593,9 +611,10 @@ def solve_batch_shared_fixed(P, A, qb, lb, ub, scal: SharedScaling,
     classification is a collective: the lanes are otherwise independent."""
     B = x0.shape[0]
     dev = x0.device
-    loose, eq = _classify_rows(lb, ub, mesh)
-    rho_vec, rho_inv, Rinv, rho0 = _init_factor(
-        P, A, dyn.sigma, loose, eq, factor0, dyn.rho_bar)
+    with profiling.annotate("osqp.driver.init_factor"):
+        loose, eq = _classify_rows(lb, ub, mesh)
+        rho_vec, rho_inv, Rinv, rho0 = _init_factor(
+            P, A, dyn.sigma, loose, eq, factor0, dyn.rho_bar)
     Einv_eff, Dinv_eff, cinv_eff = _effective(scal, dyn)
     (x, y, z, xp, yp, status, iters, pri_k, dua_k, _prn,
      _dun) = admm_solve_shared(
@@ -605,9 +624,10 @@ def solve_batch_shared_fixed(P, A, qb, lb, ub, scal: SharedScaling,
         scal=scal, eps_pinf=dyn.eps_prim_inf, eps_dinf=dyn.eps_dual_inf,
         group=group, tf32=tf32)
     # the kernel's still-running lanes already carry iters = max_iter
-    (status, iters, pri_res, dua_res, xu, yu, zu, prim_cert, dual_cert,
-     obj) = _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, xp, yp,
-                      status, iters, pri_k, dua_k, dyn.max_iter)
+    with profiling.annotate("osqp.driver.finalize"):
+        (status, iters, pri_res, dua_res, xu, yu, zu, prim_cert, dual_cert,
+         obj) = _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, xp, yp,
+                          status, iters, pri_k, dua_k, dyn.max_iter)
     out = SolveOutput(
         x=xu, y=yu, z=zu, status=status, iter=iters,
         pri_res=pri_res, dua_res=dua_res, obj_val=obj,

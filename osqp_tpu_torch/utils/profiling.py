@@ -1,6 +1,33 @@
 """Profiling hooks (``osqp_tpu/utils/profiling.py``): ``torch.profiler``
 traces of the enclosed solves, viewable in Perfetto or
-``chrome://tracing``, and named spans inside them.
+``chrome://tracing``, named spans inside them, and the program's counters.
+
+Spans. The batched path marks its layer boundaries with :func:`annotate`
+and :func:`spanned`, under names that start ``osqp.``: ``osqp.api.*``
+(``batch.py``: ``prepared``, ``solve``), ``osqp.driver.*``
+(``shared_core.py``: ``shared``, and its steps ``init_factor``, ``rho``,
+``refactor``, ``compact``, ``check``, ``finalize``; ``batch_core.py``:
+``fused``, ``check``, ``rho``, ``finalize``) and ``osqp.kernel.*`` (the
+wrappers in ``ops/``: ``leg``, ``chunk``, ``fused``). Each span of a call
+nests in its one ``osqp.api.*`` span. A span is recorded only while a profiler records
+(:func:`trace`, or any ``torch.profiler.profile``); otherwise it is one
+shared no-op context, so a solve that nobody traces pays a flag test a
+span. Recorded spans are the profiler's host events, on the clock of the
+device's kernels and copies, and entries of :data:`recorded`, on the
+host's ``time.perf_counter_ns``, for a reader that holds only the device's
+events and its own spans of the calls (``qpbench/program_spans.py``).
+
+Counters. :data:`counts` counts, whether or not a profiler records:
+
+* ``host_read.<site>``: each read of a tensor's value back to Python
+  (``.item()``, ``.tolist()``, ``bool()``, ``float()``, ``.cpu()``) of a
+  tensor that lives on the device in a CUDA solve; each such read waits
+  for the device's queue to empty. The CPU path counts the same reads.
+* ``refactor``: each KKT inverse or factorisation a batched driver
+  computes (the shared engine's ``_shared_inverse``, the per-lane
+  engine's ``_batched_factor``).
+
+The kernel wrappers' own ``.launches`` counters stay on the wrappers.
 
 Device work is asynchronous: a span that should cover its kernels ends
 with ``torch.cuda.synchronize()``. :func:`span_idle_shares` reads a
@@ -10,8 +37,68 @@ device ran none of its kernels, copies or sets.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import os
+import time
+
+import torch.autograd.profiler as _autograd_profiler
+
+#: the program's counters, process-wide, never reset by the program: read
+#: a difference across the calls of interest
+counts: collections.Counter = collections.Counter()
+
+#: what the program did while a profiler recorded, oldest first: (name,
+#: start ns, end ns, moved) on the host's ``time.perf_counter_ns``. A span
+#: is entered just outside the profiler's own event; ``moved`` is
+#: {counter: change} of :data:`counts` across an ``osqp.api.*`` span (the
+#: request's reads and refactors) and None for the others. A count is an
+#: entry of no length named by its counter, ``moved`` {counter: k}; a
+#: ``host_read.*`` count is taken just before its reads are issued. The
+#: last 65536 are kept.
+recorded: collections.deque = collections.deque(maxlen=1 << 16)
+
+#: what :func:`annotate` returns while no profiler records
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """A span while a profiler records: the profiler's event and an entry
+    of :data:`recorded`."""
+
+    __slots__ = ("name", "event", "t0", "before")
+
+    def __init__(self, name):
+        self.name = name
+        self.event = _autograd_profiler.record_function(name)
+        self.before = None
+
+    def __enter__(self):
+        if self.name.startswith("osqp.api."):
+            self.before = dict(counts)
+        self.t0 = time.perf_counter_ns()
+        self.event.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.event.__exit__(*exc)
+        t1 = time.perf_counter_ns()
+        moved = None
+        if self.before is not None:
+            moved = {k: v - self.before.get(k, 0) for k, v in counts.items()
+                     if v != self.before.get(k, 0)}
+        recorded.append((self.name, self.t0, t1, moved))
+        return False
+
+
+def count(key: str, k: int = 1):
+    """Add ``k`` to the counter ``key`` of :data:`counts` (and an entry to
+    :data:`recorded` while a profiler records)."""
+    counts[key] += k
+    if _autograd_profiler._is_profiler_enabled:
+        t = time.perf_counter_ns()
+        recorded.append((key, t, t, {key: k}))
 
 
 @contextlib.contextmanager
@@ -37,9 +124,26 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """Named profiler span (``torch.profiler.record_function``)."""
-    import torch
-    return torch.profiler.record_function(name)
+    """Named profiler span (``torch.profiler.record_function``, and an
+    entry of :data:`recorded`) while a profiler records; the shared no-op
+    context otherwise."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _Span(name)
+    return _OFF
+
+
+def spanned(name: str):
+    """Decorator: run the function inside :func:`annotate` ``(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return wrap
 
 
 def span_idle_shares(prof, names):
