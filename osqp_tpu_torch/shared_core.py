@@ -9,7 +9,12 @@ in mixed precision each chunk runs in the iteration kernel
 
 The JAX package runs the leg loop as ``lax.while_loop`` and its branches as
 ``lax.cond``; here the loop is a Python loop and the branches are Python
-``if``s on values read back from the device, a few small reads per leg.
+``if``s on values read back from the device: one read a leg (the rho
+decision, the running count and the lanes needing a certificate), and none
+in ``_finalize`` when the loop ends with no lane running. On CUDA with
+full-precision legs and no mesh, the chains of small operations around the
+legs run as replayed CUDA graphs (:mod:`osqp_tpu_torch.shared_graphs`),
+which compute the same values.
 Constraint classification (loose/eq rows for rho boosting) aggregates over
 the batch: a row is loose/eq only if it is so in every lane.
 
@@ -291,21 +296,45 @@ def rho_aggregate(est_lane, still, order, rho_bar, mesh=None):
     return torch.where(any_still, est, rho_bar), any_still
 
 
+def _infeasible(status):
+    """Lanes in a primal or dual infeasible status, accurate or not: the
+    lanes that need a certificate."""
+    return ((status == C.PRIMAL_INFEASIBLE)
+            | (status == C.PRIMAL_INFEASIBLE_INACCURATE)
+            | (status == C.DUAL_INFEASIBLE)
+            | (status == C.DUAL_INFEASIBLE_INACCURATE))
+
+
+def _unpack(v, order):
+    """Lanes packed by compaction back in their original order:
+    ``order[slot]`` is the original index of each slot."""
+    out = torch.empty_like(v)
+    out[order] = v
+    return out
+
+
 def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
-              iters, pri_res, dua_res, it_final):
+              iters, pri_res, dua_res, it_final, running=None,
+              n_infeasible=None):
     """Max-iter re-checks, unscaling, certificates and objective.
 
     Lanes still running ran out of iterations: an accurate check at the
     final iterate (a lane may converge between the last check multiple and
     max_iter), then the 10x-loosened check for the inaccurate statuses.
-    Returns (status, iters, pri_res, dua_res, x, y, z, prim_cert,
+    ``running`` (this rank's lanes still running) and ``n_infeasible``
+    (its lanes in an infeasible status) are the caller's last read, where
+    it has one: with ``running`` 0 the re-checks are skipped and the
+    certificates follow ``n_infeasible``, and neither is read from the
+    device. Returns (status, iters, pri_res, dua_res, x, y, z, prim_cert,
     dual_cert, obj)."""
-    dtype, dev = x.dtype, x.device
+    dtype = x.dtype
     hit_max = status == C.RUNNING
     dx = x - x_prev
     dy = y - y_prev
-    profiling.count("host_read.finalize_max_iter")
-    if bool(hit_max.any()):
+    if running is None:
+        profiling.count("host_read.finalize_max_iter")
+        running = bool(hit_max.any())
+    if running:
         one = torch.ones((), dtype=dtype)
         st_a, rs_a = shared_check(P, A, qb, lb, ub, scal, dyn, x, y, z, dx,
                                   dy, one, accurate=True)
@@ -331,6 +360,7 @@ def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
             hit_max, torch.where(acc_hit, rs_a.dua_res, rs_x.dua_res),
             dua_res)
         iters = torch.where(hit_max, it_final, iters).to(torch.int32)
+        n_infeasible = None         # the re-checks may have found some
 
     xu = scal.D * x
     yu = scal.cinv * scal.E * y
@@ -339,9 +369,11 @@ def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
             | (status == C.PRIMAL_INFEASIBLE_INACCURATE))
     dinf = ((status == C.DUAL_INFEASIBLE)
             | (status == C.DUAL_INFEASIBLE_INACCURATE))
+    if n_infeasible is None:
+        profiling.count("host_read.finalize_cert")
+        n_infeasible = bool((pinf | dinf).any())
     # certificates cost four batched matmuls: only when some lane needs one
-    profiling.count("host_read.finalize_cert")
-    if bool((pinf | dinf).any()):
+    if n_infeasible:
         _, prim_cert = shared_primal_inf(A, lb, ub, scal, dy,
                                          dyn.eps_prim_inf)
         _, dual_cert = shared_dual_inf(P, A, qb, lb, ub, scal, dx,
@@ -355,6 +387,247 @@ def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
     obj = torch.where(dinf, float("-inf"), obj)
     return (status, iters, pri_res, dua_res, xu, yu, zu, prim_cert,
             dual_cert, obj)
+
+
+# ---------------------------------------------------------------------------
+# The adaptive driver's state and its chains
+# ---------------------------------------------------------------------------
+
+class _Driver:
+    """The state of one adaptive shared solve, and the three chains of
+    small operations that :func:`solve_batch_shared`'s loop runs on it:
+    init before the first leg, post-leg after each, finalize after the
+    last. The chains write the lanes' state in place and hand the host
+    what it decides on in ``host``. Here each chain runs directly, on
+    buffers of this solve; :class:`osqp_tpu_torch.shared_graphs.
+    DriverGraphs` keeps the state in static buffers and replays the chains
+    as captured CUDA graphs."""
+
+    _new = staticmethod(torch.empty)
+
+    def __init__(self, n, m, dyn, B, dtype, dev, mesh=None, lowp=False):
+        self.dyn, self.B, self.dtype, self.dev = dyn, B, dtype, dev
+        self.mesh, self.lowp = mesh, lowp
+
+        def z(*shape, dtype=dtype):
+            return self._new(shape, dtype=dtype, device=dev)
+
+        # the lanes' inputs packed by compaction, iterates, status and
+        # iterations, residuals, original slots, and which still run
+        self.qc, self.lc, self.uc = z(B, n), z(B, m), z(B, m)
+        self.x, self.y, self.z = z(B, n), z(B, m), z(B, m)
+        self.xp, self.yp = z(B, n), z(B, m)
+        self.stit = z(2, B, dtype=torch.int32)
+        self.status, self.iters = self.stit[0], self.stit[1]
+        self.pd = z(2, B)
+        self.pri, self.dua = self.pd[0], self.pd[1]
+        self.iota = torch.arange(B, device=dev)
+        self.order = self.iota.clone()
+        self.still = z(B, dtype=torch.bool)
+        # rho: the rows' classification, the vector and rho in use, the
+        # last estimate and the vector it would give, the factor cache's
+        # test; the precision switch's best closeness ratio
+        self.loose, self.eq = z(m, dtype=torch.bool), z(m, dtype=torch.bool)
+        self.rho_vec, self.rho_inv = z(m), z(m)
+        self.rho_bar, self.rho_est = z(), z()
+        self.est_vec, self.est_inv = z(m), z(m)
+        self.rho_cached, self.reuse = z(m), z(dtype=torch.bool)
+        self.last_ratio = z()
+        # what the host decides on after a leg: lanes running here and in
+        # all, lanes needing a certificate, the rho flags, the switch
+        cuda = dev.type == "cuda"
+        self.host = torch.zeros(8, dtype=torch.int64, pin_memory=cuda)
+        self.read_done = torch.cuda.Event() if cuda else None
+
+    def load(self, P, A, qb, lb, ub, scal, dyn, x0, y0, z0, factor0):
+        """Take a solve's inputs; returns whether ``factor0``'s rho vector
+        is to be tested for reuse."""
+        self.P, self.A, self.qb, self.lb, self.ub = P, A, qb, lb, ub
+        self.scal, self.dyn = scal, dyn
+        torch._foreach_copy_([self.x, self.y, self.z], [x0, y0, z0])
+        rho = dyn.rho_bar if factor0 is None else factor0.rho_bar
+        self.rho_in = rho.to(dtype=self.dtype, device=self.dev)
+        check = (factor0 is not None
+                 and factor0.rho_vec.shape == self.rho_cached.shape)
+        if check:
+            self.rho_cached = factor0.rho_vec
+        return check
+
+    def take_leg(self, outs):
+        """A leg's or chunk's outputs, for the post-leg chain."""
+        self.xk, self.yk, self.zk, self.xpk, self.ypk = outs[:5]
+        self.leg_stit, self.leg_res = outs[5:7], outs[7:]
+
+    def run(self, name, body):
+        """Run the chain ``name``; returns what ``body`` returns."""
+        return body()
+
+    def read(self, k):
+        """The first ``k`` values the post-leg chain wrote to ``host``."""
+        if self.read_done is not None:
+            self.read_done.record()
+            self.read_done.synchronize()
+        return self.host[:k].tolist()
+
+    def answer(self, fields):
+        """The caller's copy of the finalize chain's fields."""
+        return fields
+
+    def take_rho(self):
+        """Move rho to the last estimate."""
+        torch._foreach_copy_([self.rho_vec, self.rho_inv, self.rho_bar],
+                             [self.est_vec, self.est_inv, self.rho_est])
+
+    def compact(self, packed):
+        """Pack the running lanes into the prefix (stable, so packed
+        prefixes barely move), their inputs with them."""
+        perm = torch.argsort((~self.still).to(torch.int32), stable=True)
+        lanes = [self.x, self.y, self.z, self.xp, self.yp]
+        src = lanes + ([self.qc, self.lc, self.uc] if packed
+                       else [self.qb, self.lb, self.ub])
+        torch._foreach_copy_(lanes + [self.qc, self.lc, self.uc],
+                             [torch.index_select(v, 0, perm) for v in src])
+        for v in (self.stit, self.pd):
+            v.copy_(torch.index_select(v, 1, perm))
+        self.order.copy_(torch.index_select(self.order, 0, perm))
+
+    # -- the chains -----------------------------------------------------------
+
+    def _init_body(self):
+        """The rows' classification, the start rho and its vector, the
+        factor cache's test, the lanes' initial state."""
+        loose, eq = _classify_rows(self.lb, self.ub, self.mesh)
+        rho0 = torch.clamp(self.rho_in, C.RHO_MIN, C.RHO_MAX)
+        rho_vec, rho_inv = _shared_rho_vec(loose, eq, rho0)
+        self.reuse.copy_(torch.all(rho_vec == self.rho_cached))
+        self.loose.copy_(loose)
+        self.eq.copy_(eq)
+        self.rho_vec.copy_(rho_vec)
+        self.rho_inv.copy_(rho_inv)
+        self.rho_bar.copy_(rho0)
+        self.rho_est.copy_(rho0)
+        self.xp.copy_(self.x)
+        self.yp.copy_(self.y)
+        self.status.fill_(C.RUNNING)
+        self.iters.zero_()
+        self.pd.fill_(float("inf"))
+        self.last_ratio.fill_(float("inf"))
+        self.order.copy_(self.iota)
+
+    def _leg_body(self, rho_now, packed, low=False, snap=False, it=0):
+        """A leg's (or chunk's) outputs merged into the lanes that ran,
+        their status and residuals; the rho estimate and the vector it
+        would give (``rho_now``); the precision switch (``low``); the
+        counts and flags the host decides on, copied to ``host``. A
+        mixed-precision chunk is checked here (the iteration kernel
+        classifies nothing): ``snap`` starts a certificate window, ``it``
+        is the iteration the chunk ended at."""
+        dyn, mesh = self.dyn, self.mesh
+        qc = self.qc if packed else self.qb
+        live = self.status == C.RUNNING
+        lx = live[:, None]
+        if self.lowp:
+            if snap:
+                torch.where(lx, self.x, self.xp, out=self.xp)
+                torch.where(lx, self.y, self.yp, out=self.yp)
+            for dst, new in ((self.x, self.xk), (self.y, self.yk),
+                             (self.z, self.zk)):
+                torch.where(lx, new, dst, out=dst)
+            with profiling.annotate("osqp.driver.check"):
+                lc, uc = (self.lc, self.uc) if packed else (self.lb, self.ub)
+                status_new, res = shared_check(
+                    self.P, self.A, qc, lc, uc, self.scal, dyn, self.x,
+                    self.y, self.z, self.x - self.xp, self.y - self.yp,
+                    torch.ones((), dtype=self.dtype), accurate=True)
+            if dyn.check_termination > 0:
+                if low:
+                    # bf16 phase: no infeasibility certificates yet
+                    benign = ((status_new == C.SOLVED)
+                              | (status_new == C.RUNNING)
+                              | (status_new == C.NON_CONVEX))
+                    status_new = torch.where(benign, status_new, self.status)
+                torch.where(live, status_new, self.status, out=self.status)
+            self.iters.masked_fill_(live & (self.status != C.RUNNING), it)
+        else:
+            for dst, new in ((self.x, self.xk), (self.y, self.yk),
+                             (self.z, self.zk), (self.xp, self.xpk),
+                             (self.yp, self.ypk)):
+                torch.where(lx, new, dst, out=dst)
+            torch.where(live, self.leg_stit[0], self.status, out=self.status)
+            torch.where(live & (self.status != C.RUNNING), self.leg_stit[1],
+                        self.iters, out=self.iters)
+            if dyn.check_termination > 0:
+                res = BRes(*self.leg_res)
+            else:
+                # the kernel never computed residuals; the rho estimate and
+                # the stall detector still need them
+                res = shared_residuals(self.P, self.A, qc, self.scal, dyn,
+                                       self.x, self.y, self.z)
+        still = self.status == C.RUNNING
+        decide = []
+        if rho_now:
+            rho_bar = self.rho_bar
+            pri_rel = res.pri_res / torch.clamp(res.pri_norm, min=_DIV_GUARD)
+            dua_rel = torch.clamp(
+                res.dua_res / torch.clamp(res.dua_norm, min=_DIV_GUARD),
+                min=_DIV_GUARD)
+            est_lane = torch.clamp(rho_bar * torch.sqrt(pri_rel / dua_rel),
+                                   C.RHO_MIN, C.RHO_MAX)
+            est_lane = torch.where(torch.isfinite(est_lane), est_lane,
+                                   rho_bar)
+            est, any_t = rho_aggregate(est_lane, still,
+                                       self.order if packed else None,
+                                       rho_bar, mesh)
+            tol = dyn.adaptive_rho_tolerance
+            decide += [any_t, est > rho_bar * tol, est < rho_bar / tol,
+                       est > rho_bar]
+            est_vec, est_inv = _shared_rho_vec(self.loose, self.eq, est)
+            self.rho_est.copy_(est)
+            self.est_vec.copy_(est_vec)
+            self.est_inv.copy_(est_inv)
+        if low:
+            # precision switch: closeness ratio of the fastest running lane;
+            # a stall switches either mode, nearness the bf16 mode only
+            # (tf32 legs can converge to eps, bf16 chunks cannot)
+            den_p = torch.clamp(dyn.eps_abs + dyn.eps_rel * res.pri_norm,
+                                min=_DIV_GUARD)
+            den_d = torch.clamp(dyn.eps_abs + dyn.eps_rel * res.dua_norm,
+                                min=_DIV_GUARD)
+            ratio = torch.maximum(res.pri_res / den_p, res.dua_res / den_d)
+            ratio = torch.where(still, ratio, float("inf"))
+            rmin = comm.min(torch.amin(ratio), mesh)
+            decide.append((rmin > _LOWP_STALL_FRAC * self.last_ratio)
+                          | (self.lowp & (rmin < _LOWP_SWITCH_RATIO)))
+            self.last_ratio.copy_(torch.minimum(rmin, self.last_ratio))
+        torch.where(live, res.pri_res, self.pri, out=self.pri)
+        torch.where(live, res.dua_res, self.dua, out=self.dua)
+        self.still.copy_(still)
+        n_here = still.sum()
+        flags = torch.stack([n_here, comm.sum(n_here, mesh),
+                             _infeasible(self.status).sum()] + decide)
+        self.host[:len(flags)].copy_(flags, non_blocking=True)
+
+    def _fin_body(self, packed, settled, n_inf, it):
+        """:func:`_finalize` on the lanes back in their original order:
+        with no re-check and no read where the loop ``settled`` every lane
+        (certificates where ``n_inf``), else with both. Returns the
+        answer's fields, the rho state among them."""
+        state = (self.x, self.y, self.z, self.xp, self.yp, self.status,
+                 self.iters, self.pri, self.dua)
+        if packed:
+            state = tuple(_unpack(v, self.order) for v in state)
+        x, y, z, xp, yp, status, iters, pri, dua = state
+        (status, iters, pri, dua, xu, yu, zu, prim_cert, dual_cert,
+         obj) = _finalize(self.P, self.A, self.qb, self.lb, self.ub,
+                          self.scal, self.dyn, x, y, z, xp, yp, status, iters,
+                          pri, dua, it, running=0 if settled else None,
+                          n_infeasible=n_inf if settled else None)
+        return dict(x=xu, y=yu, z=zu, status=status, iter=iters,
+                    pri_res=pri, dua_res=dua, obj_val=obj,
+                    prim_cert=prim_cert, dual_cert=dual_cert,
+                    rho_estimate=self.rho_est.expand(self.B).clone(),
+                    xbar=x, ybar=y, zbar=z, rho_vec=self.rho_vec,
+                    rho_inv=self.rho_inv, rho_bar=self.rho_bar)
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +647,10 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     call; between legs the loop adapts the shared rho (geometric mean of
     per-lane estimates over running lanes, ping-pong back-off in automatic
     interval mode), refactors, and packs running lanes into a prefix of the
-    batch so the kernel skips whole finished groups.
+    batch so the kernel skips whole finished groups. The operations around
+    the legs are the chains of :class:`_Driver`; on CUDA with
+    full-precision legs and no mesh they are replayed CUDA graphs
+    (:mod:`osqp_tpu_torch.shared_graphs`).
 
     ``factor0``/``with_factor``: prepared-workspace mode — start from a
     cached :class:`FactorCache` and/or return the final one.
@@ -395,204 +671,120 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     ``mesh``: this rank's lanes of a batch sharded over the mesh; the
     batch reductions are collectives, so every rank takes the same rho,
     precision and loop decisions (module docstring)."""
+    from . import shared_graphs
+
     tf32 = tf32 and not lowp
-    dtype, dev = P.dtype, P.device
     B, n = x0.shape
     m = y0.shape[1]
     if lowp:
         G = group or shared_iter.pick_group(B, n, m, x0.element_size())
     else:
         G = group or pick_group(B, n, m, x0.element_size(), tf32)
+    d = (shared_graphs.entry(P, A, dyn, x0, G, mesh, lowp or tf32)
+         or _Driver(n, m, dyn, B, P.dtype, P.device, mesh, lowp))
     compact = B >= 2 * G  # pointless below two groups
-    inf = float("inf")
 
     with profiling.annotate("osqp.driver.init_factor"):
-        loose, eq = _classify_rows(lb, ub, mesh)
-        rho_vec, rho_inv, Rinv, rho_bar = _init_factor(
-            P, A, dyn.sigma, loose, eq, factor0, dyn.rho_bar)
+        check = d.load(P, A, qb, lb, ub, scal, dyn, x0, y0, z0, factor0)
+        d.run("init", d._init_body)
+        reuse = False
+        if check:
+            profiling.count("host_read.init_factor")
+            reuse = bool(d.reuse)
+        Rinv = (factor0.Rinv if reuse
+                else _shared_inverse(P, A, dyn.sigma, d.rho_vec))
     chunk = max(dyn.check_termination, 1)
     # round half to even, as jnp.round
     rho_int = max(round(max(dyn.adaptive_rho_interval, 1) / chunk), 1) * chunk
     Einv_eff, Dinv_eff, cinv_eff = _effective(scal, dyn)
 
-    x, y, z, x_prev, y_prev = x0, y0, z0, x0, y0
     it = 0
-    status = torch.full((B,), C.RUNNING, dtype=torch.int32, device=dev)
-    iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    pri_res = torch.full((B,), inf, dtype=dtype, device=dev)
-    dua_res = torch.full((B,), inf, dtype=dtype, device=dev)
-    rho_estimate = rho_bar
     rho_updates = 0
-    qc, lc, uc = qb, lb, ub        # per-lane data, permuted with the lanes
-    order = torch.arange(B, device=dev)
     nlive = B                      # packed prefix of running lanes
     packed = False
     fine = not (tf32 or lowp)      # full-precision phase reached
-    last_ratio = torch.tensor(inf, dtype=dtype, device=dev)
     rho_dir = dyn.rho_dir0
     rho_gap = dyn.rho_gap0 if dyn.rho_gap0 > 0 else rho_int
     next_rho = dyn.next_rho0
     n_running = B * comm.size(mesh)   # over the whole batch
+    n_inf = 0                         # this rank's lanes needing a certificate
 
     while n_running > 0 and it < dyn.max_iter:
         low = not fine             # this leg or chunk in reduced precision
-        live = status == C.RUNNING
-        lx = live[:, None]
         live_groups = -(-nlive // G) if compact else None
+        qc, lc, uc = ((d.qc, d.lc, d.uc) if packed else (d.qb, d.lb, d.ub))
         if lowp:
             K = min(chunk, dyn.max_iter - it)
-            xk, yk, zk, _, _ = shared_iter.admm_iterate_shared(
-                Rinv, A, rho_vec, rho_inv, qc, lc, uc, x, y, z, dyn.sigma,
-                dyn.alpha, K, group=G, live_groups=live_groups, lowp=low)
-            # chunk-window certificate deltas: snapshot the start of every
-            # 4th chunk
-            if it % (4 * chunk) == 0:
-                x_prev = torch.where(lx, x, x_prev)
-                y_prev = torch.where(lx, y, y_prev)
-            x = torch.where(lx, xk, x)
-            y = torch.where(lx, yk, y)
-            z = torch.where(lx, zk, z)
-            it += K
-            with profiling.annotate("osqp.driver.check"):
-                status_new, res = shared_check(
-                    P, A, qc, lc, uc, scal, dyn, x, y, z, x - x_prev,
-                    y - y_prev, torch.ones((), dtype=dtype), accurate=True)
-            if dyn.check_termination > 0:
-                if low:
-                    # bf16 phase: no infeasibility certificates yet
-                    benign = ((status_new == C.SOLVED)
-                              | (status_new == C.RUNNING)
-                              | (status_new == C.NON_CONVEX))
-                    status_new = torch.where(benign, status_new, status)
-                status = torch.where(live, status_new, status)
-            iters = torch.where(live & (status != C.RUNNING), it, iters)
+            outs = shared_iter.admm_iterate_shared(
+                Rinv, A, d.rho_vec, d.rho_inv, qc, lc, uc, d.x, d.y, d.z,
+                dyn.sigma, dyn.alpha, K, group=G, live_groups=live_groups,
+                lowp=low)
         else:
             K = min(rho_int - it % rho_int, dyn.max_iter - it)
-            (xk, yk, zk, xpk, ypk, st_k, it_k, pri_k, dua_k, prn_k,
-             dun_k) = admm_solve_shared(
-                Rinv, P, A, rho_vec, rho_inv, Einv_eff, Dinv_eff, cinv_eff,
-                qc, lc, uc, x, y, z, dyn.sigma, dyn.alpha, K,
+            outs = admm_solve_shared(
+                Rinv, P, A, d.rho_vec, d.rho_inv, Einv_eff, Dinv_eff,
+                cinv_eff, qc, lc, uc, d.x, d.y, d.z, dyn.sigma, dyn.alpha, K,
                 dyn.check_termination, dyn.eps_abs, dyn.eps_rel, scal=scal,
                 eps_pinf=dyn.eps_prim_inf, eps_dinf=dyn.eps_dual_inf,
-                status0=status, it0=it, live_groups=live_groups, group=G,
+                status0=d.status, it0=it, live_groups=live_groups, group=G,
                 tf32=low)
-            x = torch.where(lx, xk, x)
-            y = torch.where(lx, yk, y)
-            z = torch.where(lx, zk, z)
-            x_prev = torch.where(lx, xpk, x_prev)
-            y_prev = torch.where(lx, ypk, y_prev)
-            it += K
-            status = torch.where(live, st_k, status)
-            iters = torch.where(live & (status != C.RUNNING), it_k, iters)
-            if dyn.check_termination > 0:
-                res = BRes(pri_k, dua_k, prn_k, dun_k)
-            else:
-                # the kernel never computed residuals; the rho estimate and
-                # the stall detector still need them
-                res = shared_residuals(P, A, qc, scal, dyn, x, y, z)
-        still = status == C.RUNNING
+        # mixed precision: certificate deltas over windows of four chunks
+        snap = it % (4 * chunk) == 0
+        it += K
+        rho_now = dyn.adaptive_rho != 0 and it % rho_int == 0
 
-        if dyn.adaptive_rho != 0 and it % rho_int == 0:
-            with profiling.annotate("osqp.driver.rho"):
-                pri_rel = res.pri_res / torch.clamp(res.pri_norm,
-                                                    min=_DIV_GUARD)
-                dua_rel = torch.clamp(
-                    res.dua_res / torch.clamp(res.dua_norm, min=_DIV_GUARD),
-                    min=_DIV_GUARD)
-                est_lane = torch.clamp(rho_bar * torch.sqrt(pri_rel / dua_rel),
-                                       C.RHO_MIN, C.RHO_MAX)
-                est_lane = torch.where(torch.isfinite(est_lane), est_lane,
-                                       rho_bar)
-                est, any_t = rho_aggregate(est_lane, still,
-                                           order if packed else None, rho_bar,
-                                           mesh)
-                tol = dyn.adaptive_rho_tolerance
-                profiling.count("host_read.rho")
-                any_still, hi, lo, up = torch.stack(
-                    [any_t, est > rho_bar * tol, est < rho_bar / tol,
-                     est > rho_bar]).tolist()
+        # what the host decides on, read back at once after the leg
+        with profiling.annotate("osqp.driver.rho"):
+            d.take_leg(outs)
+            d.run(("leg", rho_now, packed),
+                  lambda: d._leg_body(rho_now, packed, low, snap, it))
+            profiling.count("host_read.leg")
+            n_local, n_running, n_inf, *decided = d.read(
+                3 + 4 * rho_now + low)
+            if rho_now:
+                any_still, hi, lo, up = decided[:4]
                 trig = (any_still and (dyn.rho_backoff == 0 or it >= next_rho)
                         and (hi or lo))
                 dir_new = 1 if up else -1
                 if trig:
-                    rho_vec, rho_inv = _shared_rho_vec(loose, eq, est)
-                    Rinv = _shared_inverse(P, A, dyn.sigma, rho_vec)
-                    rho_bar = est
+                    d.take_rho()
+                    Rinv = _shared_inverse(P, A, dyn.sigma, d.rho_vec)
                     rho_updates += 1
                     if dyn.rho_backoff != 0:  # ping-pong back-off
                         if dir_new * rho_dir < 0:
                             rho_gap = min(rho_gap * 2, 1 << 24)
                         next_rho = it + rho_gap
                     rho_dir = dir_new
-                rho_estimate = est
-
         if low:
-            # precision switch: closeness ratio of the fastest running lane;
-            # a stall switches either mode, nearness the bf16 mode only
-            # (tf32 legs can converge to eps, bf16 chunks cannot)
-            den_p = torch.clamp(dyn.eps_abs + dyn.eps_rel * res.pri_norm,
-                                min=_DIV_GUARD)
-            den_d = torch.clamp(dyn.eps_abs + dyn.eps_rel * res.dua_norm,
-                                min=_DIV_GUARD)
-            ratio = torch.maximum(res.pri_res / den_p, res.dua_res / den_d)
-            ratio = torch.where(still, ratio, inf)
-            rmin = comm.min(torch.amin(ratio), mesh)
-            profiling.count("host_read.precision")
-            fine = bool((rmin > _LOWP_STALL_FRAC * last_ratio)
-                        | (lowp & (rmin < _LOWP_SWITCH_RATIO)))
-            last_ratio = torch.minimum(rmin, last_ratio)
+            fine = bool(decided[-1])
 
-        pri_res = torch.where(live, res.pri_res, pri_res)
-        dua_res = torch.where(live, res.dua_res, dua_res)
-        n_here = still.sum()
-        profiling.count("host_read.running")
-        n_local, n_running = torch.stack(
-            [n_here, comm.sum(n_here, mesh)]).tolist()
-
-        # pack this rank's running lanes into the prefix (stable, so packed
-        # prefixes barely move) when that frees at least one more group;
-        # not when its lanes just finished, since they stay put
+        # pack this rank's running lanes into the prefix when that frees at
+        # least one more group; not when its lanes just finished, since
+        # they stay put
         if (compact and 0 < n_local
                 and -(-n_local // G) < -(-nlive // G)):
             with profiling.annotate("osqp.driver.compact"):
-                perm = torch.argsort((~still).to(torch.int32), stable=True)
-                x, y, z = x[perm], y[perm], z[perm]
-                x_prev, y_prev = x_prev[perm], y_prev[perm]
-                status, iters = status[perm], iters[perm]
-                pri_res, dua_res = pri_res[perm], dua_res[perm]
-                qc, lc, uc = qc[perm], lc[perm], uc[perm]
-                order = order[perm]
+                d.compact(packed)
                 nlive = n_local
                 packed = True
 
     with profiling.annotate("osqp.driver.finalize"):
-        if packed:
-            # restore the original lane order: order[slot] = original index
-            def unpack(v):
-                out = torch.empty_like(v)
-                out[order] = v
-                return out
+        # the last leg's read settles every lane unless max_iter cut the loop
+        settled = n_running == 0
 
-            x, y, z = unpack(x), unpack(y), unpack(z)
-            x_prev, y_prev = unpack(x_prev), unpack(y_prev)
-            status, iters = unpack(status), unpack(iters)
-            pri_res, dua_res = unpack(pri_res), unpack(dua_res)
+        def fin():
+            return d._fin_body(packed, settled, n_inf, it)
 
-        (status, iters, pri_res, dua_res, xu, yu, zu, prim_cert, dual_cert,
-         obj) = _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev,
-                          status, iters, pri_res, dua_res, it)
+        f = d.answer(d.run(("fin", packed, n_inf > 0), fin) if settled
+                     else fin())
+    rho = FactorCache(Rinv=Rinv, rho_vec=f.pop("rho_vec"),
+                      rho_inv=f.pop("rho_inv"), rho_bar=f.pop("rho_bar"))
     out = SolveOutput(
-        x=xu, y=yu, z=zu, status=status, iter=iters,
-        pri_res=pri_res, dua_res=dua_res, obj_val=obj,
-        prim_cert=prim_cert, dual_cert=dual_cert,
-        rho_updates=torch.full((B,), rho_updates, dtype=torch.int32,
-                               device=dev),
-        rho_estimate=rho_estimate.expand(B).clone(),
-        xbar=x, ybar=y, zbar=z,
+        **f, rho_updates=torch.full((B,), rho_updates, dtype=torch.int32,
+                                    device=P.device),
         rho_dir=rho_dir, rho_gap=rho_gap, next_rho=next_rho)
     if with_factor:
-        return out, FactorCache(Rinv=Rinv, rho_vec=rho_vec, rho_inv=rho_inv,
-                                rho_bar=rho_bar)
+        return out, rho
     return out
 
 
@@ -625,9 +817,14 @@ def solve_batch_shared_fixed(P, A, qb, lb, ub, scal: SharedScaling,
         group=group, tf32=tf32)
     # the kernel's still-running lanes already carry iters = max_iter
     with profiling.annotate("osqp.driver.finalize"):
+        # one read: the lanes left running, and those needing a certificate
+        profiling.count("host_read.finalize_max_iter")
+        running, n_inf = torch.stack([(status == C.RUNNING).sum(),
+                                      _infeasible(status).sum()]).tolist()
         (status, iters, pri_res, dua_res, xu, yu, zu, prim_cert, dual_cert,
          obj) = _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, xp, yp,
-                          status, iters, pri_k, dua_k, dyn.max_iter)
+                          status, iters, pri_k, dua_k, dyn.max_iter,
+                          running=running, n_infeasible=n_inf)
     out = SolveOutput(
         x=xu, y=yu, z=zu, status=status, iter=iters,
         pri_res=pri_res, dua_res=dua_res, obj_val=obj,

@@ -26,6 +26,9 @@ Counters. :data:`counts` counts, whether or not a profiler records:
 * ``refactor``: each KKT inverse or factorisation a batched driver
   computes (the shared engine's ``_shared_inverse``, the per-lane
   engine's ``_batched_factor``).
+* ``graph.driver_replay`` and ``graph.driver_capture``: each replay and
+  each capture of one of the shared driver's CUDA graphs
+  (``shared_graphs.py``).
 
 The kernel wrappers' own ``.launches`` counters stay on the wrappers.
 

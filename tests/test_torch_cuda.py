@@ -42,6 +42,7 @@ unsharded one: status, iterations and status_polish equal, x and y within
 1e-8.
 """
 
+import contextlib
 from unittest import mock
 
 import numpy as np
@@ -1261,3 +1262,255 @@ def test_shared_solve_at_n256_matches_cpu_statuses(dev):
     st = cpu.status.numpy()
     np.testing.assert_array_equal(gpu.status.cpu().numpy(), st)
     assert (st == C.SOLVED).all()
+
+
+# ---------------------------------------------------------------------------
+# The shared driver's CUDA graphs (shared_graphs.py) against its eager path
+# ---------------------------------------------------------------------------
+
+def _counts_since(before):
+    from osqp_tpu_torch.utils import profiling
+    return {k: v - before.get(k, 0) for k, v in profiling.counts.items()
+            if v != before.get(k, 0)}
+
+
+def _assert_bit_equal(got, want, where=""):
+    """Every tensor field of two SolveOutputs equal bit for bit (NaN where
+    NaN), every other field equal."""
+    for f, a in want._asdict().items():
+        b = getattr(got, f)
+        if torch.is_tensor(a):
+            assert a.dtype == b.dtype and a.shape == b.shape, (where, f)
+            torch.testing.assert_close(b, a, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{where} {f}")
+        else:
+            assert a == b, (where, f)
+
+
+def _eager():
+    """The shared driver's eager path on the card, as a context."""
+    from osqp_tpu_torch import shared_graphs
+    return mock.patch.object(shared_graphs, "entry", return_value=None)
+
+
+def _bench_stream(dev, traffic, seed, B=4096):
+    """The benchmark's control-nx8-T10 deployment under one of its
+    traffic mixes: the settings and the stream of calls."""
+    import json
+    from qpbench import workload as W
+    cfg = json.loads((W.ROOT / "configs" / "control-nx8-T10.json")
+                     .read_text())
+    tr = json.loads((W.ROOT / "traffic" / f"{traffic}.json").read_text())
+    gen = W.load_module(W.ROOT / "gen" / "control-nx8-T10.py",
+                        "card_test_control_gen")
+    return W.settings_of(cfg), W.make_stream(cfg, gen, tr, seed, dev,
+                                             torch.float32, B)
+
+
+@pytest.mark.parametrize("traffic", ["control-warm", "control-cold"])
+def test_graph_driver_equals_eager_on_bench_control(dev, traffic):
+    """The benchmark's control problem at B=4096, float32: over a warm
+    sequence of calls (each warm-started from the last answer, the ρ and
+    factor carried) and over cold calls, the graph path's every output
+    equals the eager path's bit for bit, calls after the first replay
+    without capturing, and a call's answer survives the next call."""
+    from osqp_tpu_torch.utils import profiling
+    s, stream = _bench_stream(dev, traffic, seed=3400000004)
+    first = stream.next()
+    graph = BatchedSolver(s, kkt_mode="shared", device=dev).prepare(
+        first.P, first.A)
+    eager = BatchedSolver(s, kkt_mode="shared", device=dev).prepare(
+        first.P, first.A)
+    b, kept = first, None
+    for call in range(6):
+        before = dict(profiling.counts)
+        legs = SK.admm_solve_shared.launches
+        got = graph.solve_prepared(b.q, b.l, b.u, x0=b.x0, y0=b.y0)
+        legs = SK.admm_solve_shared.launches - legs
+        moved = _counts_since(before)
+        with _eager():
+            want = eager.solve_prepared(b.q, b.l, b.u, x0=b.x0, y0=b.y0)
+        _assert_bit_equal(got, want, f"call {call}")
+        for f in ("Rinv", "rho_vec", "rho_inv", "rho_bar"):
+            assert torch.equal(getattr(graph._prep["factor"], f),
+                               getattr(eager._prep["factor"], f)), f
+        assert (got.status == C.SOLVED).all()
+        if call > 0:
+            assert "graph.driver_capture" not in moved
+        # init, a leg each (every leg ends on a rho boundary), finalize
+        assert moved["graph.driver_replay"] == legs + 2
+        reads = {k: v for k, v in moved.items() if k.startswith("host_read")}
+        assert reads == {"host_read.init_factor": 1, "host_read.leg": legs,
+                         "host_read.leg_scalars": 2 * legs}
+        if kept is not None:
+            assert torch.equal(kept[0].x, kept[1])
+        kept = (got, got.x.clone())
+        stream.feed(got)
+        b = stream.next()
+
+
+def _both_infeasible(B=64, seed=5):
+    """Lanes 0-3 primal infeasible (one row >= 2 and <= -2), lanes 4-7
+    dual infeasible (unbounded along x0, which neither P nor A sees), the
+    rest feasible."""
+    rng = np.random.RandomState(seed)
+    n, m = 6, 8
+    P = np.diag([0.0, 1, 1, 1, 1, 1])
+    A = rng.randn(m, n)
+    A[:, 0] = 0.0
+    A[1] = A[0]
+    q = rng.randn(B, n)
+    q[:, 0] = 0.0
+    q[4:8, 0] = -1.0
+    l, u = -np.ones((B, m)), np.ones((B, m))
+    l[:4, 0], u[:4, 0] = 2.0, 3.0
+    l[:4, 1], u[:4, 1] = -3.0, -2.0
+    return P, q, A, l, u
+
+
+#: batches of the graph path's branches: (problem, settings)
+GRAPH_CASES = {
+    "staggered_compacts_f64": (lambda: _staggered(271, 8, 12, seed=4),
+                               dict(eps_abs=1e-6, eps_rel=1e-6,
+                                    dtype=np.float64)),
+    "staggered_compacts_f32": (
+        lambda: _staggered(300, 16, 24, seed=4, eq_row=False),
+        dict(eps_abs=1e-3, eps_rel=1e-3, dtype=np.float32)),
+    "primal_and_dual_infeasible": (_both_infeasible, dict(
+        eps_abs=1e-5, eps_rel=1e-5, max_iter=2000, dtype=np.float64)),
+    "max_iter": (lambda: _staggered(271, 8, 12, seed=4),
+                 dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=60,
+                      dtype=np.float64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_driver_equals_eager_on_card(dev, case):
+    """A staggered batch that compacts (float64 and float32), a batch with
+    primal- and dual-infeasible lanes and a batch that reaches max_iter,
+    through ``BatchedSolver.solve`` and a prepared re-solve: the graph
+    path equals the eager path bit for bit."""
+    make, kw = GRAPH_CASES[case]
+    P, q, A, l, u = make()
+    s = Settings(verbose=False, **kw)
+    got = BatchedSolver(s, kkt_mode="shared", device=dev).solve(P, q, A, l,
+                                                                 u)
+    with _eager():
+        want = BatchedSolver(s, kkt_mode="shared", device=dev).solve(
+            P, q, A, l, u)
+    _assert_bit_equal(got, want, case)
+    st = want.status.cpu().numpy()
+    if case == "primal_and_dual_infeasible":
+        assert (st[:4] == C.PRIMAL_INFEASIBLE).all()
+        assert (st[4:8] == C.DUAL_INFEASIBLE).all()
+        assert (st[8:] == C.SOLVED).all()
+    elif case == "max_iter":
+        assert (st == C.MAX_ITER_REACHED).any()
+    else:
+        it = want.iter.cpu().numpy()
+        assert it.max() > it.min() and want.rho_updates[0] > 0
+    # a prepared re-solve from the answer: the factor cache and warm start
+    solvers = [BatchedSolver(s, kkt_mode="shared", device=dev).prepare(P, A)
+               for _ in range(2)]
+    outs = []
+    for k, solver in enumerate(solvers):
+        with _eager() if k else contextlib.nullcontext():
+            solver.solve_prepared(q, l, u)
+            outs.append(solver.solve_prepared(q, l, u, x0=got.x.nan_to_num(),
+                                              y0=got.y.nan_to_num()))
+    _assert_bit_equal(outs[0], outs[1], f"{case} prepared")
+
+
+def test_graph_driver_settings_update_captures_afresh(dev):
+    """A settings update that the graphs bake in (eps_prim_inf) misses the
+    cache and captures anew; the next call replays."""
+    from osqp_tpu_torch.utils import profiling
+    P, q, A, l, u = _staggered(64, 8, 12, seed=2)
+    solver = BatchedSolver(Settings(verbose=False, dtype=np.float64),
+                           kkt_mode="shared", device=dev).prepare(P, A)
+    solver.solve_prepared(q, l, u)
+    before = dict(profiling.counts)
+    solver.solve_prepared(q, l, u)
+    assert "graph.driver_capture" not in _counts_since(before)
+    solver.update_settings(eps_prim_inf=2e-5)
+    before = dict(profiling.counts)
+    solver.solve_prepared(q, l, u)
+    assert _counts_since(before)["graph.driver_capture"] >= 4
+    before = dict(profiling.counts)
+    solver.solve_prepared(q, l, u)
+    moved = _counts_since(before)
+    assert "graph.driver_capture" not in moved
+    assert moved["graph.driver_replay"] >= 3
+
+
+def test_graph_driver_threads_keep_their_own_state(dev):
+    """Two serving threads, each with its own prepared solver at the same
+    key, capturing and solving at once (one on the default stream, one on
+    a stream of its own): each answer equals the eager path's on its own
+    inputs, bit for bit."""
+    import threading
+    P, q, A, l, u = _staggered(271, 8, 12, seed=4)
+    s = Settings(verbose=False, eps_abs=1e-6, eps_rel=1e-6, dtype=np.float64)
+    qs, calls = [q, np.ascontiguousarray(q[::-1])], 4
+    want = []
+    with _eager():
+        for qk in qs:
+            solver = BatchedSolver(s, kkt_mode="shared", device=dev).prepare(
+                P, A)
+            want.append([solver.solve_prepared(qk, l, u)
+                         for _ in range(calls)])
+    got, errors = [None, None], []
+    start = threading.Barrier(2)
+
+    def serve(k):
+        try:
+            solver = BatchedSolver(s, kkt_mode="shared", device=dev).prepare(
+                P, A)
+            stream = (torch.cuda.current_stream(dev) if k == 0
+                      else torch.cuda.Stream(device=dev))
+            start.wait()
+            with torch.cuda.stream(stream):
+                got[k] = [solver.solve_prepared(qs[k], l, u)
+                          for _ in range(calls)]
+                stream.synchronize()
+        except Exception as e:  # noqa: BLE001 - raised in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for k in range(2):
+        for c in range(calls):
+            _assert_bit_equal(got[k][c], want[k][c], f"thread {k} call {c}")
+
+
+def test_graph_driver_rollout_memory_stays_flat(dev):
+    """A rollout on the graph path keeps of each step its status,
+    iterations and objective, and nothing more: each field of an answer is
+    a tensor of its own, so a field kept holds no other alive (as views of
+    one answer buffer they held some 360 KB a step here)."""
+    P, q, A, l, u = _staggered(512, 8, 12, seed=4)
+    s = Settings(verbose=False, eps_abs=1e-6, eps_rel=1e-6, dtype=np.float64)
+    solver = BatchedSolver(s, kkt_mode="shared", device=dev).prepare(P, A)
+
+    def same(x, qlu, k):
+        return qlu
+
+    solver.solve_rollout(q, l, u, same, n_steps=2)
+    peak = {}
+    for n_steps in (4, 24):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        roll = solver.solve_rollout(q, l, u, same, n_steps=n_steps)
+        torch.cuda.synchronize(dev)
+        peak[n_steps] = torch.cuda.max_memory_allocated(dev) - base
+        assert (roll["status"] == C.SOLVED).all()
+        del roll
+    # a step's status and iter (int32) and obj_val (float64), held in the
+    # lists and again in their stacks, with half as much again to spare
+    step = 512 * (4 + 4 + 8)
+    assert peak[24] - peak[4] <= 20 * step * 3, peak

@@ -7,6 +7,8 @@ interpret mode) over the conformance families at small sizes: statuses,
 iteration counts and rho updates identical, x and y within atol 1e-8.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -20,8 +22,10 @@ from osqp_tpu import shared_core as JSC
 from osqp_tpu.core import dyn_from_settings as jax_dyn
 from osqp_tpu.settings import Settings as JaxSettings
 from osqp_tpu_torch import shared_core as TSC
+from osqp_tpu_torch import shared_graphs as SG
 from osqp_tpu_torch.core import dyn_from_settings as torch_dyn
 from osqp_tpu_torch.settings import Settings
+from osqp_tpu_torch.utils import profiling
 
 #: families cut to n <= 16, m <= 30
 SMALL = {
@@ -275,3 +279,234 @@ def test_staggered_exits_compact_lanes():
     # y reaches 1e3 here: its agreement is relative
     _assert_same(ref, port, rtol=1e-8)
     assert len(set(port.iter.numpy().tolist())) > 2
+
+
+def _counted(fn):
+    """fn()'s result and the change of the program's counters across it."""
+    before = dict(profiling.counts)
+    out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in profiling.counts.items()
+                 if v != before.get(k, 0)}
+
+
+def _infeasible_batch():
+    """Lanes 0 and 1 primal infeasible (one row >= 2 and <= -2), lanes 2
+    and 3 feasible."""
+    rng = np.random.RandomState(5)
+    n, m, B = 6, 8, 4
+    P = np.eye(n)
+    A = rng.randn(m, n)
+    A[1] = A[0]
+    q = rng.randn(B, n)
+    l, u = -np.ones((B, m)), np.ones((B, m))
+    l[:2, 0], u[:2, 0] = 2.0, 3.0
+    l[:2, 1], u[:2, 1] = -3.0, -2.0
+    return P, q, A, l, u
+
+
+#: the driver's reads: (settings, adaptive, the reads ``_finalize`` makes)
+READ_CASES = {
+    # every lane settles within the loop: the last leg's read decides
+    "settled": (dict(max_iter=2000), True, {}),
+    # max_iter cuts the loop with lanes running: both finalize reads
+    "max_iter": (dict(max_iter=60), True,
+                 {"host_read.finalize_max_iter": 1,
+                  "host_read.finalize_cert": 1}),
+    # the infeasible lanes end at iteration 50, the last lane at 100
+    "certs_from_an_earlier_leg": (
+        dict(max_iter=2000, eps_abs=1e-8, eps_rel=1e-8,
+             adaptive_rho_interval=25), True, {}),
+    # adaptive rho off: one leg, and one read for both finalize questions
+    "fixed": (dict(max_iter=2000), False,
+              {"host_read.finalize_max_iter": 1}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(READ_CASES))
+def test_driver_reads_once_a_leg(case, monkeypatch):
+    """Each leg costs one read (``host_read.leg``) besides the leg
+    wrapper's two: the rho decision, the running count and the count of
+    lanes needing a certificate together. A loop that ends with no lane
+    running makes no read in ``_finalize``; a max_iter exit makes both;
+    certificates still come for lanes that ended legs before the last."""
+    kw, adaptive, fin = READ_CASES[case]
+    statuses = []
+    leg = TSC.admm_solve_shared
+
+    def spy(*a, **k):
+        out = leg(*a, **k)
+        statuses.append(sorted(out[5].tolist()))
+        return out
+
+    monkeypatch.setattr(TSC, "admm_solve_shared", spy)
+    (ref, port), moved = _counted(lambda: _solve_both(
+        *_infeasible_batch(), adaptive=adaptive, **kw))
+    _assert_same(ref, port, atol=1e-7)
+    L = len(statuses)
+    reads = {k: v for k, v in moved.items() if k.startswith("host_read.")}
+    want = {"host_read.leg_scalars": 2 * L, **fin}
+    if adaptive:
+        want["host_read.leg"] = L
+    assert reads == want
+    st = port.status.numpy()
+    assert np.all(st[:2] == C.PRIMAL_INFEASIBLE) or case == "max_iter"
+    if case == "certs_from_an_earlier_leg":
+        # both infeasible lanes were classified before the last leg
+        assert L >= 3 and statuses[-2].count(C.PRIMAL_INFEASIBLE) == 2
+        assert np.abs(port.prim_cert.numpy()[:2]).max() > 0.1
+    if case == "max_iter":
+        assert L == 1 and np.any(st == C.MAX_ITER_REACHED)
+    # the certificates of the lanes that need one
+    np.testing.assert_allclose(port.prim_cert.numpy()[:2],
+                               np.asarray(ref.prim_cert)[:2], atol=1e-8)
+
+
+class _Replay:
+    """A captured chain's stand-in on the CPU: a replay runs its body and
+    rewrites the outputs kept at capture, as a graph's replay does."""
+
+    def __init__(self, body, outputs):
+        self.body, self.outputs = body, outputs
+
+    def replay(self):
+        for k, v in (self.body() or {}).items():
+            self.outputs[k].copy_(v)
+
+
+def _capture_on_cpu(self, name, body):
+    profiling.count("graph.driver_capture")
+    self.outputs[name] = body()
+    self.graphs[name] = _Replay(body, self.outputs[name])
+
+
+def _shared_inputs(P, q, A, l, u, dtype):
+    """Scaled shared data and per-lane vectors as ``_prepared_solve``
+    hands them to the driver."""
+    P, q, A, l, u = (torch.as_tensor(np.asarray(v), dtype=dtype)
+                     for v in (P, q, A, l, u))
+    l = torch.clamp(l, -C.OSQP_INFTY, C.OSQP_INFTY)
+    u = torch.clamp(u, -C.OSQP_INFTY, C.OSQP_INFTY)
+    Pb, Ab, scal = TSC.shared_ruiz(P, A, torch.amax(torch.abs(q), dim=0), 10)
+    return Pb, Ab, scal, scal.c * scal.D * q, scal.E * l, scal.E * u
+
+
+#: the graph path's host logic on the CPU: (problem, settings, group)
+GRAPH_CASES = {
+    "staggered_compacts": (lambda: _staggered_cpu(), dict(), 1),
+    "infeasible_certs": (_infeasible_batch, dict(
+        max_iter=2000, eps_abs=1e-8, eps_rel=1e-8, adaptive_rho_interval=25),
+        1),
+    "max_iter": (lambda: _staggered_cpu(), dict(max_iter=60,
+                                                adaptive_rho_interval=25), 2),
+}
+
+
+def _staggered_cpu():
+    rng = np.random.RandomState(3)
+    B, n, m = 8, 8, 16
+    M = rng.randn(n, n) / np.sqrt(n)
+    P = M.T @ M + 0.1 * np.eye(n)
+    A = rng.randn(m, n) / np.sqrt(n)
+    q = rng.randn(B, n) * np.logspace(-1, 1, B)[:, None]
+    c = 0.3 * rng.randn(B, m)
+    w = 0.5 + rng.rand(B, m)
+    l, u = c - w, c + w
+    l[:, 0], u[:, 0] = -1e30, 1e30
+    return P, q, A, l, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_driver_equals_eager_on_cpu(case, dtype, monkeypatch):
+    """The driver on ``shared_graphs.DriverGraphs``, each captured chain
+    run eagerly on its static state: the same outputs as on the eager
+    driver's own buffers, bit for bit, and the same reads, over a cold call
+    that misses the factor cache and a warm one from its factor and
+    answer; each field of the answer a tensor of its own, apart from the
+    static state. Checks the host side of the graphs (the inputs and leg
+    outputs copied in, lane compaction, the answer's copies, the factor
+    carried out, the max_iter exit) where no card is."""
+    monkeypatch.setattr(SG.DriverGraphs, "_capture", _capture_on_cpu)
+    legs_run = []
+    leg = TSC.admm_solve_shared
+
+    def spy(*a, **k):
+        legs_run.append((k["it0"], a[16]))
+        return leg(*a, **k)
+
+    monkeypatch.setattr(TSC, "admm_solve_shared", spy)
+    make, kw, G = GRAPH_CASES[case]
+    P, q, A, l, u = make()
+    Pb, Ab, scal, qb, lb, ub = _shared_inputs(P, q, A, l, u, dtype)
+    B, n = qb.shape
+    m = lb.shape[1]
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    dyn = torch_dyn(Settings(**dict(KW, dtype=npdt, **kw)), npdt)
+    factor = TSC.FactorCache(Rinv=torch.zeros((n, n), dtype=dtype),
+                             rho_vec=torch.zeros(m, dtype=dtype),
+                             rho_inv=torch.zeros(m, dtype=dtype),
+                             rho_bar=torch.tensor(0.1, dtype=dtype))
+    graphs, captured = _counted(lambda: SG.DriverGraphs(
+        n, m, dyn, B, dtype, torch.device("cpu")))
+    assert captured == {"graph.driver_capture": 7}
+    starts = {"eager": (torch.zeros((B, n), dtype=dtype),
+                        torch.zeros((B, m), dtype=dtype), factor)}
+    starts["graph"] = starts["eager"]
+    for call in ("cold", "warm"):
+        got, legs = {}, {}
+        for path in ("eager", "graph"):
+            x0, y0, f0 = starts[path]
+            args = (Pb, Ab, qb, lb, ub, scal, dyn, x0, y0, x0 @ Ab.T)
+            monkeypatch.setattr(SG, "entry", lambda *a, p=path: (
+                graphs if p == "graph" else None))
+            got[path] = _counted(lambda: TSC.solve_batch_shared(
+                *args, group=G, factor0=f0, with_factor=True))
+            legs[path] = [it0 + K for it0, K in legs_run]
+            del legs_run[:]
+        (eo, ef), emoved = got["eager"]
+        ends = legs["eager"]
+        assert legs["graph"] == ends
+        (go, gf), gmoved = got["graph"]
+        for f, a in eo._asdict().items():
+            b = getattr(go, f)
+            if torch.is_tensor(a):
+                assert a.dtype == b.dtype and a.shape == b.shape, f
+                torch.testing.assert_close(b, a, rtol=0, atol=0,
+                                           equal_nan=True, msg=f)
+            else:
+                assert a == b, f
+        for f in TSC.FactorCache._fields:
+            assert torch.equal(getattr(gf, f), getattr(ef, f)), f
+        fields = [v for v in go if torch.is_tensor(v)] + list(gf[1:])
+        ptrs = {v.untyped_storage().data_ptr() for v in fields}
+        static = {v.untyped_storage().data_ptr()
+                  for v in vars(graphs).values() if torch.is_tensor(v)}
+        assert len(ptrs) == len(fields) and not ptrs & static
+        replays = gmoved.pop("graph.driver_replay")
+        assert gmoved == emoved
+        # init, every leg that ends on a rho boundary, finalize unless
+        # max_iter cut the loop
+        cut = "host_read.finalize_cert" in emoved
+        if call == "cold":
+            assert cut == (case == "max_iter") or dtype == torch.float32
+            if case == "staggered_compacts":
+                assert len(set(eo.iter.tolist())) > 2
+        on_rho = sum(e % dyn.adaptive_rho_interval == 0 for e in ends)
+        assert len(ends) == emoved["host_read.leg"]
+        assert replays == 1 + on_rho + (not cut)
+        starts = {"eager": (eo.xbar, eo.ybar, ef), "graph": (go.xbar,
+                                                              go.ybar, gf)}
+
+
+def test_graph_cache_is_per_thread():
+    """Each thread keeps its own captured drivers and capture streams, so
+    solvers in two threads never share the graphs' static state."""
+    theirs = []
+    t = threading.Thread(target=lambda: theirs.append(
+        (SG._local().cache, SG._local().streams)))
+    t.start()
+    t.join()
+    mine = (SG._local().cache, SG._local().streams)
+    assert SG._local().cache is mine[0]
+    assert theirs[0][0] is not mine[0] and theirs[0][1] is not mine[1]
