@@ -39,6 +39,17 @@ _DIV_GUARD = 1e-10
 #: closeness ratio by less than this fraction switches to full float32.
 _LOWP_STALL_FRAC = 0.95
 KKT_MODES = ("inverse", "chol", "fused")
+#: The largest rho of an equality row in a float32 solve, unless the lane's
+#: ρ̄ is larger (the reference's ρ_eq = 1e3·ρ̄ otherwise). It is the
+#: reference's first ρ_eq at the default ρ̄ = 0.1, so a lane's first factor
+#: is the reference's and only a rising ρ̄ is held. A float32 iteration's
+#: fixed point carries a dual residual that grows faster than ρ_eq: on a
+#: control lane of the fleet (PERF.md §6) it reads 1.4e-3 at ρ_eq = 100
+#: and 1.9 at ρ̄ = 12, ρ_eq = 1.2e4, against an eps 1e-3 threshold of
+#: 3.2e-3, so a lane whose ρ̄ rises cannot meet eps and its rho rule then
+#: pulls ρ̄ down to where it crawls. Float64 solves keep the reference's
+#: rule.
+RHO_EQ_MAX_F32 = 100.0
 
 
 def _bmm(A, x):
@@ -64,12 +75,13 @@ def _batched_factor(P, A, sigma, rho_vec, kkt_mode: str):
     its Cholesky factor ("chol"), or R⁻¹ through that factor and two
     triangular solves ("inverse", "fused")."""
     profiling.count("refactor")
-    L = _batched_chol(P, A, sigma, rho_vec)
-    if kkt_mode == "chol":
-        return L
-    eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
-    w = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
-    return torch.linalg.solve_triangular(L.mT, w, upper=True)
+    with profiling.drained("osqp.driver.factor", P.device):
+        L = _batched_chol(P, A, sigma, rho_vec)
+        if kkt_mode == "chol":
+            return L
+        eye = torch.eye(P.shape[-1], dtype=P.dtype, device=P.device)
+        w = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+        return torch.linalg.solve_triangular(L.mT, w, upper=True)
 
 
 def _batched_kkt_apply(F, b, kkt_mode: str):
@@ -87,15 +99,16 @@ def _split(M):
 
 class _Adapt:
     """Per-lane adaptive-rho state: rho, its vector and factor, and the
-    ping-pong back-off schedule."""
+    ping-pong back-off schedule. In a float32 solve the equality rows'
+    rho is at most ``RHO_EQ_MAX_F32``, and never under the lane's ρ̄."""
 
     def __init__(self, sdata, dyn, kkt_mode, B, dtype, dev):
         self.sdata, self.dyn, self.mode = sdata, dyn, kkt_mode
         self.loose, self.eq = constraint_masks(sdata.l, sdata.u)
+        self.eq_max = RHO_EQ_MAX_F32 if dtype == torch.float32 else None
         rho0 = dyn.rho_bar.to(dtype=dtype, device=dev).expand(B)
         self.rho_bar = torch.clamp(rho0, C.RHO_MIN, C.RHO_MAX)
-        self.rho_vec, self.rho_inv = build_rho_vec(self.loose, self.eq,
-                                                   self.rho_bar[:, None])
+        self.rho_vec, self.rho_inv = self._rho_vec(self.rho_bar)
         self.F = _batched_factor(sdata.P, sdata.A, dyn.sigma, self.rho_vec,
                                  kkt_mode)
         self.rho_estimate = self.rho_bar.clone()
@@ -111,6 +124,15 @@ class _Adapt:
         self.rho_gap = torch.where(gap0 > 0, gap0,
                                    max(dyn.adaptive_rho_interval, 1))
         self.next_rho = i32(dyn.next_rho0)
+
+    def _rho_vec(self, rho_bar):
+        """(rho, 1/rho) of every row of every lane at the lanes' ρ̄."""
+        rv, ri = build_rho_vec(self.loose, self.eq, rho_bar[:, None])
+        if self.eq_max is None:
+            return rv, ri
+        cap = torch.clamp(rho_bar[:, None], min=self.eq_max)
+        rv = torch.where(self.eq, torch.minimum(rv, cap), rv)
+        return rv, 1.0 / rv
 
     def step(self, it: int, live, status, res: ResInfo):
         """One adaptation at global iteration ``it``: per-lane estimate,
@@ -141,7 +163,7 @@ class _Adapt:
         if not bool(trig.any()):
             return False
         rb = torch.where(trig, est, self.rho_bar)
-        rv, ri = build_rho_vec(self.loose, self.eq, rb[:, None])
+        rv, ri = self._rho_vec(rb)
         self.rho_vec = torch.where(trig[:, None], rv, self.rho_vec)
         self.rho_inv = torch.where(trig[:, None], ri, self.rho_inv)
         Fn = _batched_factor(self.sdata.P, self.sdata.A, dyn.sigma,
@@ -400,7 +422,8 @@ def solve_batch(data: QPData, dyn: DynParams, scaling_iters: int, x0, y0,
     if kkt_mode not in KKT_MODES:
         raise ValueError(f"kkt_mode {kkt_mode!r} not in {KKT_MODES} "
                          f"(or 'shared')")
-    sdata, scal = scale_problem(data, scaling_iters)
+    with profiling.drained("osqp.driver.scale", data.P.device):
+        sdata, scal = scale_problem(data, scaling_iters)
     xb = scal.Dinv * x0
     yb = scal.c[:, None] * scal.Einv * y0
     zb = _bmm(sdata.A, xb)

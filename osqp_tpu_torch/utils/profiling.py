@@ -7,9 +7,10 @@ and :func:`spanned`, under names that start ``osqp.``: ``osqp.api.*``
 (``batch.py``: ``prepared``, ``solve``), ``osqp.driver.*``
 (``shared_core.py``: ``shared``, and its steps ``init_factor``, ``rho``,
 ``refactor``, ``compact``, ``check``, ``finalize``; ``batch_core.py``:
-``fused``, ``check``, ``rho``, ``finalize``) and ``osqp.kernel.*`` (the
-wrappers in ``ops/``: ``leg``, ``chunk``, ``fused``). Each span of a call
-nests in its one ``osqp.api.*`` span. A span is recorded only while a profiler records
+``fused``, ``check``, ``rho``, ``finalize``, and the per-lane ``scale``
+and ``factor``) and ``osqp.kernel.*`` (the wrappers in ``ops/``: ``leg``,
+``chunk``, ``fused``). Each span of a call nests in its one
+``osqp.api.*`` span. A span is recorded only while a profiler records
 (:func:`trace`, or any ``torch.profiler.profile``); otherwise it is one
 shared no-op context, so a solve that nobody traces pays a flag test a
 span. Recorded spans are the profiler's host events, on the clock of the
@@ -33,7 +34,10 @@ Counters. :data:`counts` counts, whether or not a profiler records:
 The kernel wrappers' own ``.launches`` counters stay on the wrappers.
 
 Device work is asynchronous: a span that should cover its kernels ends
-with ``torch.cuda.synchronize()``. :func:`span_idle_shares` reads a
+with ``torch.cuda.synchronize()``. :func:`drained` is such a span: while a
+profiler records, it empties the device's queue on entry and on exit, so
+that the device's busy time inside it is its own work (the per-lane
+``scale`` and ``factor``). :func:`span_idle_shares` reads a
 finished trace: each span's wall time and the share of it in which the
 device ran none of its kernels, copies or sets.
 """
@@ -132,6 +136,41 @@ def annotate(name: str):
     context otherwise."""
     if _autograd_profiler._is_profiler_enabled:
         return _Span(name)
+    return _OFF
+
+
+class _Drained(_Span):
+    """A :class:`_Span` that empties the device's queue on entry and on
+    exit."""
+
+    __slots__ = ("device",)
+
+    def __init__(self, name, device):
+        super().__init__(name)
+        self.device = device
+
+    def __enter__(self):
+        self._sync()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._sync()
+        return super().__exit__(*exc)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            import torch
+            torch.cuda.synchronize(self.device)
+
+
+def drained(name: str, device):
+    """:func:`annotate` for a span whose device time is read: while a
+    profiler records, the queue of ``device`` is emptied on entry and on
+    exit, so the device's busy time inside the span is the span's own work
+    and none of it runs after the span; the shared no-op context
+    otherwise."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _Drained(name, device)
     return _OFF
 
 

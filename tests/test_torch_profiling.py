@@ -210,3 +210,29 @@ def test_outputs_and_counts_alike_with_and_without_a_profiler(tmp_path,
                                        equal_nan=True, msg=field)
         else:
             assert b == a, field
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_per_lane_scale_and_factor_spans(tmp_path, path):
+    """The per-lane path marks its Ruiz scaling (one ``osqp.driver.scale``
+    a solve) and each factor of its lanes' KKT matrices (one
+    ``osqp.driver.factor`` a ``refactor`` count: the first and each rho
+    refactor), both inside its ``osqp.api.solve``; the shared paths
+    record neither."""
+    solve = _solve(path)
+    with profiling.trace(str(tmp_path / path)) as prof:
+        _, moved = _counted(solve)
+    spans = collections.defaultdict(list)
+    for e in prof.events():
+        if (e.name.startswith("osqp.")
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+    if PATHS[path][1] == "shared":
+        assert not spans["osqp.driver.scale"]
+        assert not spans["osqp.driver.factor"]
+        return
+    assert len(spans["osqp.driver.scale"]) == 1
+    assert len(spans["osqp.driver.factor"]) == moved["refactor"] >= 1
+    (a0, a1), = spans["osqp.api.solve"]
+    for name in ("osqp.driver.scale", "osqp.driver.factor"):
+        assert all(a0 <= b0 and b1 <= a1 for b0, b1 in spans[name]), name
