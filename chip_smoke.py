@@ -4,7 +4,7 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the torch and CUDA versions and the card's name and power limit;
-2. builds the three kernels (csrc/*.cu, one nvcc process per source, all at
+2. builds the four kernels (csrc/*.cu, one nvcc process per source, all at
    once) and times the build;
 3. holds the leg kernel against its plain PyTorch twin on the card, one leg
    of 100 iterations on 256 bench-shape QPs, in float64 (both routes: the
@@ -41,7 +41,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    copy at the memory rate); then drives
    the per-lane path — BatchedSolver(kkt_mode="fused").solve cold — checks
    every lane Solved, statuses equal to kkt_mode="inverse" on the same
-   data, and 64 lanes in float64 numpy;
+   data, and 64 lanes in float64 numpy; before it, holds the per-lane Ruiz
+   kernel (csrc/ruiz.cu) against its twin, ten rounds on the fleet's lanes
+   (problems.control_qp, a plant a lane: B=4096, n=120, m=200) in float32
+   (the shared route) and float64 (the device route), every output within
+   tools/ruiz_ab.py's REL_TOL, and times it beside its twin and its bound;
+   each per-lane solve launches it once (phases 7, 8), a shared one never
+   (phase 4);
 8. drives the rest of the solver's surface through its entry points:
    (a) polish=True on phase 4's batch (a shared cold solve, whose polish
    re-equilibrates every lane, and a prepared re-solve; every lane Solved,
@@ -202,7 +208,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    re-solves at the bench width (``tools/soak.py``): every lane Solved,
    no device-memory growth beyond one batch's workspace, leg launches a
    solve steady; it checks that the phase launched all three kernels;
-16. prints one JSON line of the three kernels (launch counts of their own
+16. prints one JSON line of the four kernels (launch counts of their own
    paths and of phases 8 to 15, agreement with the twins, times, and the
    least time the card could take for the same work), the nvidia-smi
    line, and last the device line ``{"ok": true, "device": {...}}``.
@@ -444,6 +450,9 @@ def phase8_surface(torch, C, BatchedSolver, Settings, reset_counts,
             "[8a] fused and inverse statuses differ under polish")
     require(bool((fsp == isp)[same].all()), "[8a] fused and inverse "
             "status_polish differ on lanes with equal iterations")
+    require(launches["polish_per_lane"]["equilibrate"] == 1,
+            "[8a] the polished per-lane solve did not launch the Ruiz "
+            "kernel once")
     require(launches["polish_per_lane"]["admm_iterate"] > 0,
             "[8a] the polished per-lane solve never launched the fused "
             "kernel")
@@ -486,6 +495,9 @@ def phase8_surface(torch, C, BatchedSolver, Settings, reset_counts,
         f"launches {launches['time_limit_per_lane']}")
     require(bool((tlf_out.status == ref7.status).all()),
             "[8b] time-limited fused statuses differ from phase 7")
+    require(launches["time_limit_per_lane"]["equilibrate"] == len(chunks),
+            "[8b] the time-limited per-lane solve did not launch the Ruiz "
+            "kernel once a chunk")
     require(launches["time_limit_per_lane"]["admm_iterate"] > 0,
             "[8b] the time-limited per-lane solve never launched the fused "
             "kernel")
@@ -1323,7 +1335,7 @@ def phase15_entry_points(torch, reset_counts, counts, out_dir):
         f"{launches_a}, b {launches_b}, c {launches_c}); phase "
         f"{nums['phase_s']:.1f} s (a {nums['shapes_s']:.1f} s, b "
         f"{nums['examples_s']:.1f} s, c {nums['soak_s']:.1f} s)")
-    require(all(v > 0 for v in launches.values()),
+    require(all(launches[k] > 0 for k in BS.TPU_KERNELS),
             "[15] the phase did not launch all three kernels")
     (out_dir / "entry_phase.json").write_text(
         json.dumps(nums, indent=1, default=float))
@@ -1537,6 +1549,8 @@ def run(torch, oracles):
         f"{int(cold.rho_updates[0])}, leg launches {cold_launches}")
     require(np.all(st == C.SOLVED), "cold solve: not every lane Solved")
     require(cold_launches > 0, "cold solve never launched the leg kernel")
+    require(path4["equilibrate"] == 0,
+            "[4] the shared-structure path launched the Ruiz kernel")
     require(bool((roll["status"] == C.SOLVED).all()), "rollout step failed")
     say(f"[4] warm prepared re-solves: median "
         f"{statistics.median(warm_times):.1f} ms, mean iterations per cycle "
@@ -1786,6 +1800,41 @@ def run(torch, oracles):
             f"{copy_ms:.3f} ms of operator copy in {waves} waves")
         del sd, Rinv_b, f_args, k, p, ctl
 
+    # the per-lane Ruiz kernel against its twin on the fleet's lanes
+    from osqp_tpu_torch.ops import ruiz as RZ
+    from osqp_tpu_torch.scaling import ruiz_equilibrate
+    from osqp_tpu_torch.tools import ruiz_ab as RA
+    fleet64 = RA.fleet_lanes(torch, B_MAIN, torch.float64, "cpu")
+    ruiz_rows = {}
+    for name, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        data = QPData(*(t.to("cuda", dt).contiguous() for t in fleet64))
+        r_route = RZ.pick_route(120, 200, dt)
+        reset_counts()
+        got = RZ.equilibrate(data, 10)
+        launched = counts()["equilibrate"]
+        want = ruiz_equilibrate(data, 10)
+        errs = RA.differences(torch, got, want)
+        err = max(errs.values())
+        tol = RA.REL_TOL[str(dt).removeprefix("torch.")]
+        r_ms = cuda_ms(torch, lambda: RZ.equilibrate(data, 10), 5)
+        t_ms = cuda_ms(torch, lambda: ruiz_equilibrate(data, 10), 3)
+        bound = RA.byte_bound_ms(120, 200, data.P.element_size(), B_MAIN)
+        ruiz_rows[name] = dict(route=r_route, err=err, ms=r_ms, plain_ms=t_ms,
+                               bound_ms=bound)
+        say(f"[7r] Ruiz kernel, fleet lanes B={B_MAIN} n=120 m=200 {name}, "
+            f"10 rounds, {r_route} route: largest relative difference from "
+            f"the twin {err:.3e} (tolerance {tol:g}; "
+            + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+            + f"); {launched} launch; kernel {r_ms:.3f} ms, plain twin "
+            f"{t_ms:.3f} ms, bound {bound:.4f} ms (bytes)"
+            + (f"; ptxas: {ptxas_usage(log, 'ruiz_kernelIfLi1E')}"
+               if r_route == "shared" else ""))
+        require(launched == 1, f"[7r] {name}: {launched} launches, not 1")
+        require(err <= tol, f"[7r] {name}: the Ruiz kernel differs from "
+                f"the twin by {err:.3e} > {tol:g}")
+        del data, got, want
+    del fleet64
+
     lane_settings = Settings(eps_abs=EPS, eps_rel=EPS, verbose=False,
                              dtype=np.float32)
     fused = BatchedSolver(lane_settings, kkt_mode="fused", device="cuda")
@@ -1794,6 +1843,9 @@ def run(torch, oracles):
     f_ms, f_out = wall_ms(torch, lambda: fused.solve(Ppd, qpd, Apd, lpd,
                                                      upd), 1)
     path7 = counts()
+    require(path7["equilibrate"] == 1,
+            f"[7] the per-lane solve launched the Ruiz kernel "
+            f"{path7['equilibrate']} times, not once")
     i_ms, i_out = wall_ms(torch, lambda: inverse.solve(Ppd, qpd, Apd, lpd,
                                                        upd), 1)
     st7 = f_out.status.cpu().numpy()
@@ -1856,10 +1908,20 @@ def run(torch, oracles):
              bound_ms=fused_bound, bound_by=fused_by, variant=route,
              staged_ms=fused_ms["staged"]),
     ]
+    rr = ruiz_rows["f32"]
+    rows.append(dict(
+        name="equilibrate", source="ruiz.cu", replaces=None,
+        launches=path7["equilibrate"], max_rel_err=rr["err"], ms=rr["ms"],
+        plain_ms=rr["plain_ms"], bound_ms=rr["bound_ms"], bound_by="bytes",
+        variant=rr["route"], f64_route=ruiz_rows["f64"]["route"],
+        f64_ms=ruiz_rows["f64"]["ms"],
+        f64_max_rel_err=ruiz_rows["f64"]["err"]))
     for r in rows:
-        # no single PyTorch call computes K ADMM iterations
+        # no single PyTorch call computes K ADMM iterations; the Ruiz
+        # kernel's library is its twin, torch's own ops
         r.update(route="cuda", source="osqp_tpu_torch/csrc/" + r["source"],
-                 library_ms=None,
+                 library_ms=(r["plain_ms"] if r["name"] == "equilibrate"
+                             else None),
                  phase8_launches={k: v[r["name"]]
                                   for k, v in phase8.items()},
                  phase9_launches=phase9[r["name"]],

@@ -36,9 +36,10 @@ import torch
 from . import constants as C
 from .linalg import (cg_solve, chol_factor, chol_solve, inf_norm,
                      precision_scope, reduced_kkt)
+from .ops.ruiz import equilibrate
 from .ops.shared_iter import dot3, split_bf16
 from .parallel import comm
-from .scaling import identity_scaling, ruiz_equilibrate
+from .scaling import identity_scaling
 from .types import DynParams, QPData, ScalingData, SolveOutput
 
 _DIV_GUARD = 1e-10
@@ -272,7 +273,8 @@ def termination_status(sdata, scal, dyn, x, y, z, dx_bar, dy_bar,
 def scale_problem(data: QPData, scaling_iters: int, mesh=None):
     """Clip bounds to ±OSQP_INFTY and Ruiz-equilibrate (0 rounds: unit
     scalings). Leading batch axes allowed; under ``mesh`` A, l, u are
-    this rank's rows."""
+    this rank's rows. Stacked CUDA lanes without a mesh take the Ruiz
+    kernel (:func:`osqp_tpu_torch.ops.ruiz.equilibrate`)."""
     l = torch.clamp(data.l, -C.OSQP_INFTY, C.OSQP_INFTY)
     u = torch.clamp(data.u, -C.OSQP_INFTY, C.OSQP_INFTY)
     data = data._replace(l=l, u=u)
@@ -280,7 +282,7 @@ def scale_problem(data: QPData, scaling_iters: int, mesh=None):
         P = data.P
         return data, identity_scaling(P.shape[-1], data.A.shape[-2],
                                       P.dtype, P.device, P.shape[:-2])
-    return ruiz_equilibrate(data, scaling_iters, mesh)
+    return equilibrate(data, scaling_iters, mesh)
 
 
 # ---------------------------------------------------------------------------

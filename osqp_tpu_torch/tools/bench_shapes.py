@@ -312,14 +312,22 @@ def hold_text(h):
             f"an iteration")
 
 
+#: The wrappers of the three kernels that port the TPU kernels; the
+#: fourth of :func:`kernel_wrappers`, ``equilibrate``, replaces none.
+TPU_KERNELS = ("admm_solve_shared", "admm_iterate_shared", "admm_iterate")
+
+
 def kernel_wrappers():
-    """The three kernels' wrappers by name (each keeps its launch count)."""
+    """The four kernels' wrappers by name (each keeps its launch count):
+    the three of ``TPU_KERNELS`` and the per-lane Ruiz kernel's."""
     from ..ops import fused_iter as FI
+    from ..ops import ruiz as RZ
     from ..ops import shared_iter as SI
     from ..ops import solve_kernel as SK
     return {"admm_solve_shared": SK.admm_solve_shared,
             "admm_iterate_shared": SI.admm_iterate_shared,
-            "admm_iterate": FI.admm_iterate}
+            "admm_iterate": FI.admm_iterate,
+            "equilibrate": RZ.equilibrate}
 
 
 class Run:

@@ -74,12 +74,8 @@ F64_EPS = 1e-9         # (e): eps of the float64 ShardedQP solves
 
 
 def _launches():
-    from ..ops import fused_iter as FI
-    from ..ops import shared_iter as SI
-    from ..ops import solve_kernel as SK
-    return {"admm_solve_shared": SK.admm_solve_shared.launches,
-            "admm_iterate_shared": SI.admm_iterate_shared.launches,
-            "admm_iterate": FI.admm_iterate.launches}
+    from .bench_shapes import kernel_wrappers
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def _sync(torch, dev):
@@ -369,15 +365,14 @@ def _lanes(arr):
 
 def run(out_dir, cfg, say=print):
     """All cells of ``cfg["cells"]``; returns {cell line name: row} and the
-    three kernels' launches summed over every process."""
+    kernels' launches summed over every process."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     from .mesh_world import run_world
 
     cuda = cfg["device"].startswith("cuda")
     rows = {}
-    total = dict.fromkeys(("admm_solve_shared", "admm_iterate_shared",
-                           "admm_iterate"), 0)
+    total = dict.fromkeys(_launches(), 0)
 
     def add(launches):
         for k, v in launches.items():
