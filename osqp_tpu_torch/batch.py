@@ -4,7 +4,9 @@
 and A. One-shot solves go through
 :func:`osqp_tpu_torch.shared_core.solve_shared`; the prepared workspace
 (``prepare``/``solve_prepared``/``solve_rollout``) keeps the scaled data and
-the adapted KKT factor across re-solves, the MPC and serving loop.
+the adapted KKT factor across re-solves, the MPC and serving loop, and
+hands each re-solve's lanes to :func:`osqp_tpu_torch.shared_core.
+solve_lanes`, as ``solve_shared`` does.
 ``mixed_precision`` runs its bf16-then-full-precision chunks there.
 
 ``kkt_mode`` "inverse" (the default), "chol" and "fused" solve a batch
@@ -46,13 +48,7 @@ from .linalg import precision_scope
 from .parallel import comm
 from .polish import polish
 from .settings import Settings
-from .shared_core import (
-    FactorCache,
-    shared_ruiz,
-    solve_batch_shared,
-    solve_batch_shared_fixed,
-    solve_shared,
-)
+from .shared_core import FactorCache, shared_ruiz, solve_lanes, solve_shared
 from .types import QPData, SolveOutput, solution_present
 from .utils import profiling
 
@@ -95,30 +91,6 @@ def _rho_value(rho0):
     return float(np.median(np.asarray(rho0)) if np.ndim(rho0) else rho0)
 
 
-def _prepared_solve(Pb, Ab, scal, q, l, u, x0, y0, dyn,
-                    factor0: FactorCache, adaptive: bool, lowp: bool,
-                    tf32: bool):
-    """Prepared re-solve: scale per-lane vectors with the cached (D, E, c),
-    start from the cached factor, return (out, updated factor). ``lowp``
-    applies to the adaptive engine only, as in the JAX package."""
-    l = torch.clamp(l, -C.OSQP_INFTY, C.OSQP_INFTY)
-    u = torch.clamp(u, -C.OSQP_INFTY, C.OSQP_INFTY)
-    qb = scal.c * scal.D * q
-    lb = scal.E * l
-    ub = scal.E * u
-    x0, y0 = _sanitize_starts(x0, y0)
-    xb = scal.Dinv * x0
-    yb = scal.c * scal.Einv * y0
-    zb = xb @ Ab.T
-    if adaptive:
-        return solve_batch_shared(Pb, Ab, qb, lb, ub, scal, dyn, xb, yb, zb,
-                                  factor0=factor0, with_factor=True,
-                                  lowp=lowp, tf32=tf32)
-    return solve_batch_shared_fixed(Pb, Ab, qb, lb, ub, scal, dyn, xb, yb,
-                                    zb, factor0=factor0, with_factor=True,
-                                    tf32=tf32)
-
-
 def _delta(settings):
     """Polish's regularization as a 0-d tensor of the compute dtype."""
     return torch.tensor(settings.delta,
@@ -155,10 +127,11 @@ def prepared_request(prep: dict, settings: Settings, q, l, u, x0, y0,
     (output, the factor to carry into the next request)."""
     s = settings
     dyn = dyn_from_settings(s, s.resolve_dtype())
+    x0, y0 = _sanitize_starts(x0, y0)
     with precision_scope():
-        out, fac = _prepared_solve(
-            prep["Pb"], prep["Ab"], prep["scal"], q, l, u, x0, y0, dyn,
-            factor, adaptive=bool(s.adaptive_rho), lowp=s.mixed_precision,
+        out, fac = solve_lanes(
+            prep["Pb"], prep["Ab"], prep["scal"], dyn, q, l, u, x0, y0,
+            factor0=factor, with_factor=True, lowp=s.mixed_precision,
             tf32=s.tf32())
     if s.polish:
         out = _shared_polish(prep["P"], prep["A"], q, l, u, dyn, s, out)
@@ -510,10 +483,11 @@ class BatchedSolver:
             steps["xs"] = []
         with precision_scope():
             for k in range(int(n_steps)):
-                out, factor = _prepared_solve(
-                    p["Pb"], p["Ab"], p["scal"], q, l, u, x, y, dyn, factor,
-                    adaptive=bool(s.adaptive_rho), lowp=s.mixed_precision,
-                    tf32=s.tf32())
+                x, y = _sanitize_starts(x, y)
+                out, factor = solve_lanes(
+                    p["Pb"], p["Ab"], p["scal"], dyn, q, l, u, x, y,
+                    factor0=factor, with_factor=True,
+                    lowp=s.mixed_precision, tf32=s.tf32())
                 q, l, u = (self._t(v) for v in step_fn(out.x, (q, l, u), k))
                 steps["status"].append(out.status)
                 steps["iter"].append(out.iter)

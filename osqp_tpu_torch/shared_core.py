@@ -30,11 +30,13 @@ is 0; lane compaction and the final classification stay local.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from . import constants as C
+from . import shared_graphs
 from .linalg import inf_norm
 from .linalg import chol_factor, with_precision
 from .ops import shared_iter
@@ -237,28 +239,6 @@ def _shared_inverse(P, A, sigma, rho_vec):
     return _chol_inverse(_shared_R(P, A, sigma, rho_vec))
 
 
-def _init_factor(P, A, sigma, loose, eq, factor0, rho_dyn):
-    """Initial (rho_vec, rho_inv, Rinv, rho_bar) for a solve.
-
-    With ``factor0`` given, rho comes from the cache and ``Rinv`` is reused
-    when the rho vector of the CURRENT loose/eq classification matches the
-    cached one exactly; otherwise the KKT matrix is refactored once."""
-    if factor0 is None:
-        rho0 = torch.clamp(rho_dyn.to(dtype=P.dtype, device=P.device),
-                           C.RHO_MIN, C.RHO_MAX)
-        rho_vec, rho_inv = _shared_rho_vec(loose, eq, rho0)
-        return rho_vec, rho_inv, _shared_inverse(P, A, sigma, rho_vec), rho0
-    rho0 = torch.clamp(factor0.rho_bar.to(dtype=P.dtype, device=P.device),
-                       C.RHO_MIN, C.RHO_MAX)
-    rho_vec, rho_inv = _shared_rho_vec(loose, eq, rho0)
-    reuse = factor0.rho_vec.shape == rho_vec.shape
-    if reuse:
-        profiling.count("host_read.init_factor")
-        reuse = bool(torch.all(rho_vec == factor0.rho_vec))
-    Rinv = factor0.Rinv if reuse else _shared_inverse(P, A, sigma, rho_vec)
-    return rho_vec, rho_inv, Rinv, rho0
-
-
 def _classify_rows(lb, ub, mesh=None):
     """Batch-aggregated (loose, eq) row masks for the rho vector, over
     every rank's lanes under ``mesh``."""
@@ -314,26 +294,23 @@ def _unpack(v, order):
 
 
 def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
-              iters, pri_res, dua_res, it_final, running=None,
-              n_infeasible=None):
+              iters, pri_res, dua_res, it_final, running, n_infeasible):
     """Max-iter re-checks, unscaling, certificates and objective.
 
     Lanes still running ran out of iterations: an accurate check at the
     final iterate (a lane may converge between the last check multiple and
     max_iter), then the 10x-loosened check for the inaccurate statuses.
     ``running`` (this rank's lanes still running) and ``n_infeasible``
-    (its lanes in an infeasible status) are the caller's last read, where
-    it has one: with ``running`` 0 the re-checks are skipped and the
-    certificates follow ``n_infeasible``, and neither is read from the
-    device. Returns (status, iters, pri_res, dua_res, x, y, z, prim_cert,
-    dual_cert, obj)."""
+    (its lanes in an infeasible status) are the caller's last read: with
+    ``running`` 0 the re-checks are skipped and the certificates follow
+    ``n_infeasible``, with no read; else the re-checks may find more
+    infeasible lanes, and one read decides the certificates. Returns
+    (status, iters, pri_res, dua_res, x, y, z, prim_cert, dual_cert,
+    obj)."""
     dtype = x.dtype
     hit_max = status == C.RUNNING
     dx = x - x_prev
     dy = y - y_prev
-    if running is None:
-        profiling.count("host_read.finalize_max_iter")
-        running = bool(hit_max.any())
     if running:
         one = torch.ones((), dtype=dtype)
         st_a, rs_a = shared_check(P, A, qb, lb, ub, scal, dyn, x, y, z, dx,
@@ -390,28 +367,40 @@ def _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, x_prev, y_prev, status,
 
 
 # ---------------------------------------------------------------------------
-# The adaptive driver's state and its chains
+# The driver's state and its chains
 # ---------------------------------------------------------------------------
 
 class _Driver:
-    """The state of one adaptive shared solve, and the three chains of
-    small operations that :func:`solve_batch_shared`'s loop runs on it:
-    init before the first leg, post-leg after each, finalize after the
-    last. The chains write the lanes' state in place and hand the host
-    what it decides on in ``host``. Here each chain runs directly, on
-    buffers of this solve; :class:`osqp_tpu_torch.shared_graphs.
-    DriverGraphs` keeps the state in static buffers and replays the chains
-    as captured CUDA graphs."""
-
-    _new = staticmethod(torch.empty)
+    """The state of a shared solve, in buffers of the driver's own, and the
+    three chains of small operations that :func:`solve_batch_shared`'s
+    loop runs on it: init before the first leg, post-leg after each,
+    finalize after the last. A solve copies its inputs, the shared P and
+    A, the scaling, the start rho and each leg's outputs into the buffers;
+    the chains write the lanes' state in place and hand the host what it
+    decides on in ``host``. :func:`osqp_tpu_torch.shared_graphs.entry`
+    captures the chains onto a driver as CUDA graphs (``graphs``, and what
+    each returns in ``outputs``) and keeps it for the next solve at its
+    key; :meth:`run` replays a captured chain and runs any other
+    directly, on the same buffers."""
 
     def __init__(self, n, m, dyn, B, dtype, dev, mesh=None, lowp=False):
         self.dyn, self.B, self.dtype, self.dev = dyn, B, dtype, dev
         self.mesh, self.lowp = mesh, lowp
 
         def z(*shape, dtype=dtype):
-            return self._new(shape, dtype=dtype, device=dev)
+            return torch.zeros(shape, dtype=dtype, device=dev)
 
+        # the call's shared P and A, scaling, inputs and start rho, copied in
+        self.P, self.A = z(n, n), z(m, n)
+        self.scal = SharedScaling(*(z(*s) for s in
+                                    ((n,), (m,), (), (n,), (m,), ())))
+        self.qb, self.lb, self.ub = z(B, n), z(B, m), z(B, m)
+        self.rho_in = z()
+        # a leg's outputs, copied in
+        self.xk, self.yk, self.zk = z(B, n), z(B, m), z(B, m)
+        self.xpk, self.ypk = z(B, n), z(B, m)
+        self.leg_stit = z(2, B, dtype=torch.int32)
+        self.leg_res = z(4, B)                     # pri, dua, prn, dun
         # the lanes' inputs packed by compaction, iterates, status and
         # iterations, residuals, original slots, and which still run
         self.qc, self.lc, self.uc = z(B, n), z(B, m), z(B, m)
@@ -438,29 +427,53 @@ class _Driver:
         cuda = dev.type == "cuda"
         self.host = torch.zeros(8, dtype=torch.int64, pin_memory=cuda)
         self.read_done = torch.cuda.Event() if cuda else None
+        # the captured chains and what each returns; the last solve done
+        # with the buffers, on the device
+        self.graphs, self.outputs = {}, {}
+        self.idle = torch.cuda.Event() if cuda else None
 
     def load(self, P, A, qb, lb, ub, scal, dyn, x0, y0, z0, factor0):
-        """Take a solve's inputs; returns whether ``factor0``'s rho vector
-        is to be tested for reuse."""
-        self.P, self.A, self.qb, self.lb, self.ub = P, A, qb, lb, ub
-        self.scal, self.dyn = scal, dyn
-        torch._foreach_copy_([self.x, self.y, self.z], [x0, y0, z0])
-        rho = dyn.rho_bar if factor0 is None else factor0.rho_bar
-        self.rho_in = rho.to(dtype=self.dtype, device=self.dev)
+        """Copy a solve's inputs in, once the previous solve on the
+        buffers is done with them; returns whether ``factor0``'s rho
+        vector is to be tested for reuse."""
+        self.dyn = dyn
+        if self.idle is not None:
+            torch.cuda.current_stream(self.dev).wait_event(self.idle)
+        dst = [self.qb, self.lb, self.ub, self.x, self.y, self.z, self.P,
+               self.A, *self.scal]
+        src = [qb, lb, ub, x0, y0, z0, P, A, *scal]
         check = (factor0 is not None
                  and factor0.rho_vec.shape == self.rho_cached.shape)
-        if check:
-            self.rho_cached = factor0.rho_vec
+        if factor0 is None:
+            self.rho_in.fill_(float(dyn.rho_bar))
+        else:
+            dst.append(self.rho_in)
+            src.append(factor0.rho_bar)
+            if check:
+                dst.append(self.rho_cached)
+                src.append(factor0.rho_vec)
+        torch._foreach_copy_(dst, src)
         return check
 
     def take_leg(self, outs):
-        """A leg's or chunk's outputs, for the post-leg chain."""
-        self.xk, self.yk, self.zk, self.xpk, self.ypk = outs[:5]
-        self.leg_stit, self.leg_res = outs[5:7], outs[7:]
+        """Copy a leg's or chunk's outputs in, for the post-leg chain (a
+        mixed-precision chunk has no status or residuals)."""
+        torch._foreach_copy_([self.xk, self.yk, self.zk, self.xpk, self.ypk],
+                             list(outs[:5]))
+        if not self.lowp:
+            torch.stack(outs[5:7], out=self.leg_stit)
+            torch.stack(outs[7:], out=self.leg_res)
 
     def run(self, name, body):
-        """Run the chain ``name``; returns what ``body`` returns."""
-        return body()
+        """Replay the graph ``name`` and return its outputs; a chain with
+        none (nothing captured, or a leg that ends off a rho boundary)
+        runs ``body`` directly on the same state."""
+        g = self.graphs.get(name)
+        if g is None:
+            return body()
+        profiling.count("graph.driver_replay")
+        g.replay()
+        return self.outputs[name]
 
     def read(self, k):
         """The first ``k`` values the post-leg chain wrote to ``host``."""
@@ -470,8 +483,21 @@ class _Driver:
         return self.host[:k].tolist()
 
     def answer(self, fields):
-        """The caller's copy of the finalize chain's fields."""
-        return fields
+        """The caller's copy of the finalize chain's fields. Where chains
+        were captured, a copy of each field in a tensor of its own, so
+        that nothing the caller keeps (a warm start, a rollout's statuses)
+        aliases the buffers, which the next solve rewrites, or keeps
+        another field alive."""
+        if not self.graphs:
+            return fields
+        out = {k: torch.empty_like(v) for k, v in fields.items()}
+        for dt in {v.dtype for v in fields.values()}:
+            keys = [k for k, v in fields.items() if v.dtype == dt]
+            torch._foreach_copy_([out[k] for k in keys],
+                                 [fields[k] for k in keys])
+        if self.idle is not None:
+            self.idle.record()
+        return out
 
     def take_rho(self):
         """Move rho to the last estimate."""
@@ -607,11 +633,11 @@ class _Driver:
                              _infeasible(self.status).sum()] + decide)
         self.host[:len(flags)].copy_(flags, non_blocking=True)
 
-    def _fin_body(self, packed, settled, n_inf, it):
-        """:func:`_finalize` on the lanes back in their original order:
-        with no re-check and no read where the loop ``settled`` every lane
-        (certificates where ``n_inf``), else with both. Returns the
-        answer's fields, the rho state among them."""
+    def _fin_body(self, packed, running, n_inf, it):
+        """:func:`_finalize` on the lanes back in their original order,
+        given the last leg's counts of this rank's lanes still ``running``
+        and needing a certificate (``n_inf``). Returns the answer's
+        fields, the rho state among them."""
         state = (self.x, self.y, self.z, self.xp, self.yp, self.status,
                  self.iters, self.pri, self.dua)
         if packed:
@@ -620,8 +646,7 @@ class _Driver:
         (status, iters, pri, dua, xu, yu, zu, prim_cert, dual_cert,
          obj) = _finalize(self.P, self.A, self.qb, self.lb, self.ub,
                           self.scal, self.dyn, x, y, z, xp, yp, status, iters,
-                          pri, dua, it, running=0 if settled else None,
-                          n_infeasible=n_inf if settled else None)
+                          pri, dua, it, running, n_inf)
         return dict(x=xu, y=yu, z=zu, status=status, iter=iters,
                     pri_res=pri, dua_res=dua, obj_val=obj,
                     prim_cert=prim_cert, dual_cert=dual_cert,
@@ -640,8 +665,8 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
                        x0, y0, z0, group=None, factor0: FactorCache = None,
                        with_factor: bool = False, lowp: bool = False,
                        tf32: bool = False, mesh=None):
-    """Adaptive-rho batched solve with shared (scaled) P, A. Per-lane
-    qb/lb/ub are scaled; x0/y0/z0 are scaled starts.
+    """Batched solve with shared (scaled) P, A. Per-lane qb/lb/ub are
+    scaled; x0/y0/z0 are scaled starts.
 
     Each leg runs up to the next rho-adaptation boundary in one leg-kernel
     call; between legs the loop adapts the shared rho (geometric mean of
@@ -651,6 +676,12 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     the legs are the chains of :class:`_Driver`; on CUDA with
     full-precision legs and no mesh they are replayed CUDA graphs
     (:mod:`osqp_tpu_torch.shared_graphs`).
+
+    With adaptive rho off (``dyn.adaptive_rho`` 0) the loop is one leg of
+    max_iter iterations at the start rho, classified every
+    check_termination iterations, and no rho step; ``lowp`` is ignored
+    there, as in the JAX package, and ``tf32`` runs the whole leg in split
+    products.
 
     ``factor0``/``with_factor``: prepared-workspace mode — start from a
     cached :class:`FactorCache` and/or return the final one.
@@ -671,8 +702,8 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     ``mesh``: this rank's lanes of a batch sharded over the mesh; the
     batch reductions are collectives, so every rank takes the same rho,
     precision and loop decisions (module docstring)."""
-    from . import shared_graphs
-
+    fixed = dyn.adaptive_rho == 0
+    lowp = lowp and not fixed
     tf32 = tf32 and not lowp
     B, n = x0.shape
     m = y0.shape[1]
@@ -680,8 +711,9 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
         G = group or shared_iter.pick_group(B, n, m, x0.element_size())
     else:
         G = group or pick_group(B, n, m, x0.element_size(), tf32)
-    d = (shared_graphs.entry(P, A, dyn, x0, G, mesh, lowp or tf32)
-         or _Driver(n, m, dyn, B, P.dtype, P.device, mesh, lowp))
+    new = functools.partial(_Driver, n, m, dyn, B, P.dtype, P.device, mesh,
+                            lowp)
+    d = shared_graphs.entry(P, A, dyn, x0, G, mesh, lowp or tf32, new) or new()
     compact = B >= 2 * G  # pointless below two groups
 
     with profiling.annotate("osqp.driver.init_factor"):
@@ -701,11 +733,12 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     it = 0
     rho_updates = 0
     nlive = B                      # packed prefix of running lanes
+    n_local = B                    # this rank's lanes still running
     packed = False
     fine = not (tf32 or lowp)      # full-precision phase reached
-    rho_dir = dyn.rho_dir0
-    rho_gap = dyn.rho_gap0 if dyn.rho_gap0 > 0 else rho_int
-    next_rho = dyn.next_rho0
+    rho_dir, rho_gap, next_rho = ((0, 0, 0) if fixed else (
+        dyn.rho_dir0, dyn.rho_gap0 if dyn.rho_gap0 > 0 else rho_int,
+        dyn.next_rho0))
     n_running = B * comm.size(mesh)   # over the whole batch
     n_inf = 0                         # this rank's lanes needing a certificate
 
@@ -720,7 +753,9 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
                 dyn.sigma, dyn.alpha, K, group=G, live_groups=live_groups,
                 lowp=low)
         else:
-            K = min(rho_int - it % rho_int, dyn.max_iter - it)
+            K = dyn.max_iter - it
+            if not fixed:
+                K = min(rho_int - it % rho_int, K)
             outs = admm_solve_shared(
                 Rinv, P, A, d.rho_vec, d.rho_inv, Einv_eff, Dinv_eff,
                 cinv_eff, qc, lc, uc, d.x, d.y, d.z, dyn.sigma, dyn.alpha, K,
@@ -731,7 +766,7 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
         # mixed precision: certificate deltas over windows of four chunks
         snap = it % (4 * chunk) == 0
         it += K
-        rho_now = dyn.adaptive_rho != 0 and it % rho_int == 0
+        rho_now = not fixed and it % rho_int == 0
 
         # what the host decides on, read back at once after the leg
         with profiling.annotate("osqp.driver.rho"):
@@ -759,9 +794,9 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
             fine = bool(decided[-1])
 
         # pack this rank's running lanes into the prefix when that frees at
-        # least one more group; not when its lanes just finished, since
-        # they stay put
-        if (compact and 0 < n_local
+        # least one more group and another leg follows; not when its lanes
+        # just finished, since they stay put
+        if (compact and 0 < n_local and it < dyn.max_iter
                 and -(-n_local // G) < -(-nlive // G)):
             with profiling.annotate("osqp.driver.compact"):
                 d.compact(packed)
@@ -770,13 +805,12 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
 
     with profiling.annotate("osqp.driver.finalize"):
         # the last leg's read settles every lane unless max_iter cut the loop
-        settled = n_running == 0
 
         def fin():
-            return d._fin_body(packed, settled, n_inf, it)
+            return d._fin_body(packed, n_local, n_inf, it)
 
-        f = d.answer(d.run(("fin", packed, n_inf > 0), fin) if settled
-                     else fin())
+        f = d.answer(d.run(("fin", packed, n_inf > 0), fin)
+                     if n_running == 0 else fin())
     rho = FactorCache(Rinv=Rinv, rho_vec=f.pop("rho_vec"),
                       rho_inv=f.pop("rho_inv"), rho_bar=f.pop("rho_bar"))
     out = SolveOutput(
@@ -788,55 +822,21 @@ def solve_batch_shared(P, A, qb, lb, ub, scal: SharedScaling, dyn: DynParams,
     return out
 
 
-@profiling.spanned("osqp.driver.shared")
-@with_precision
-def solve_batch_shared_fixed(P, A, qb, lb, ub, scal: SharedScaling,
-                             dyn: DynParams, x0, y0, z0, group=None,
-                             factor0: FactorCache = None,
-                             with_factor: bool = False, tf32: bool = False,
-                             mesh=None):
-    """Fixed-rho shared-structure solve: the whole loop is one leg-kernel
-    call with full classification every check_termination iterations.
-    Used when adaptive_rho is off (no mid-solve refactorization). With
-    ``tf32`` the whole solve runs the split products: there is no host loop
-    between legs to fall back to float32. Over ``mesh`` only the row
-    classification is a collective: the lanes are otherwise independent."""
-    B = x0.shape[0]
-    dev = x0.device
-    with profiling.annotate("osqp.driver.init_factor"):
-        loose, eq = _classify_rows(lb, ub, mesh)
-        rho_vec, rho_inv, Rinv, rho0 = _init_factor(
-            P, A, dyn.sigma, loose, eq, factor0, dyn.rho_bar)
-    Einv_eff, Dinv_eff, cinv_eff = _effective(scal, dyn)
-    (x, y, z, xp, yp, status, iters, pri_k, dua_k, _prn,
-     _dun) = admm_solve_shared(
-        Rinv, P, A, rho_vec, rho_inv, Einv_eff, Dinv_eff, cinv_eff,
-        qb, lb, ub, x0, y0, z0, dyn.sigma, dyn.alpha,
-        dyn.max_iter, dyn.check_termination, dyn.eps_abs, dyn.eps_rel,
-        scal=scal, eps_pinf=dyn.eps_prim_inf, eps_dinf=dyn.eps_dual_inf,
-        group=group, tf32=tf32)
-    # the kernel's still-running lanes already carry iters = max_iter
-    with profiling.annotate("osqp.driver.finalize"):
-        # one read: the lanes left running, and those needing a certificate
-        profiling.count("host_read.finalize_max_iter")
-        running, n_inf = torch.stack([(status == C.RUNNING).sum(),
-                                      _infeasible(status).sum()]).tolist()
-        (status, iters, pri_res, dua_res, xu, yu, zu, prim_cert, dual_cert,
-         obj) = _finalize(P, A, qb, lb, ub, scal, dyn, x, y, z, xp, yp,
-                          status, iters, pri_k, dua_k, dyn.max_iter,
-                          running=running, n_infeasible=n_inf)
-    out = SolveOutput(
-        x=xu, y=yu, z=zu, status=status, iter=iters,
-        pri_res=pri_res, dua_res=dua_res, obj_val=obj,
-        prim_cert=prim_cert, dual_cert=dual_cert,
-        rho_updates=torch.zeros((B,), dtype=torch.int32, device=dev),
-        rho_estimate=rho0.expand(B).clone(),
-        xbar=x, ybar=y, zbar=z, rho_dir=0, rho_gap=0, next_rho=0)
-    if with_factor:
-        # fixed rho: the factor does not evolve during the solve
-        return out, FactorCache(Rinv=Rinv, rho_vec=rho_vec, rho_inv=rho_inv,
-                                rho_bar=rho0)
-    return out
+def solve_lanes(Pb, Ab, scal: SharedScaling, dyn: DynParams, q, l, u, x0,
+                y0, **kw):
+    """:func:`solve_batch_shared` on lanes given unscaled: clamp the
+    bounds, scale q, l, u and the starts x0/y0 with the shared scaling
+    ``scal`` of the scaled (Pb, Ab), and derive z0 = x0 Abᵀ. ``kw`` goes
+    to :func:`solve_batch_shared`."""
+    l = torch.clamp(l, -C.OSQP_INFTY, C.OSQP_INFTY)
+    u = torch.clamp(u, -C.OSQP_INFTY, C.OSQP_INFTY)
+    qb = scal.c * scal.D * q
+    lb = scal.E * l
+    ub = scal.E * u
+    xb = scal.Dinv * x0
+    yb = scal.c * scal.Einv * y0
+    zb = xb @ Ab.T
+    return solve_batch_shared(Pb, Ab, qb, lb, ub, scal, dyn, xb, yb, zb, **kw)
 
 
 def solve_shared(P, A, q, l, u, dyn: DynParams, scaling_iters, x0, y0,
@@ -844,24 +844,14 @@ def solve_shared(P, A, q, l, u, dyn: DynParams, scaling_iters, x0, y0,
                  tf32: bool = False, mesh=None) -> SolveOutput:
     """One-shot shared-structure solve: scale the shared data once, then
     solve the batch. P (n,n), A (m,n) shared; q (B,n), l/u (B,m) per lane;
-    x0/y0 unscaled. ``adaptive=False`` selects the fixed-rho single-leg
-    path; ``lowp`` (mixed precision) applies to the adaptive path only, as
-    in the JAX package. ``mesh``: q, l, u, x0, y0 are this rank's lanes of
-    a batch sharded over the mesh; the scaling sees every rank's max |q|
-    (P and A, hence the scaling, stay the same on every rank)."""
-    l = torch.clamp(l, -C.OSQP_INFTY, C.OSQP_INFTY)
-    u = torch.clamp(u, -C.OSQP_INFTY, C.OSQP_INFTY)
+    x0/y0 unscaled. ``adaptive=False`` turns adaptive rho off (the
+    one-leg path of :func:`solve_batch_shared`). ``mesh``: q, l, u, x0, y0
+    are this rank's lanes of a batch sharded over the mesh; the scaling
+    sees every rank's max |q| (P and A, hence the scaling, stay the same
+    on every rank)."""
     q_absmax = comm.max(torch.amax(torch.abs(q), dim=0), mesh)
     Pb, Ab, scal = shared_ruiz(P, A, q_absmax, scaling_iters)
-    qb = scal.c * scal.D * q
-    lb = scal.E * l
-    ub = scal.E * u
-    xb = scal.Dinv * x0
-    yb = scal.c * scal.Einv * y0
-    zb = xb @ Ab.T
     if not adaptive:
-        return solve_batch_shared_fixed(Pb, Ab, qb, lb, ub, scal, dyn,
-                                        xb, yb, zb, group=group, tf32=tf32,
-                                        mesh=mesh)
-    return solve_batch_shared(Pb, Ab, qb, lb, ub, scal, dyn, xb, yb, zb,
-                              group=group, lowp=lowp, tf32=tf32, mesh=mesh)
+        dyn = dyn._replace(adaptive_rho=0)
+    return solve_lanes(Pb, Ab, scal, dyn, q, l, u, x0, y0, group=group,
+                       lowp=lowp, tf32=tf32, mesh=mesh)

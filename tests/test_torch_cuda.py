@@ -1381,15 +1381,23 @@ GRAPH_CASES = {
     "max_iter": (lambda: _staggered(271, 8, 12, seed=4),
                  dict(eps_abs=1e-6, eps_rel=1e-6, max_iter=60,
                       dtype=np.float64)),
+    "fixed_rho_f64": (lambda: _staggered(271, 8, 12, seed=4),
+                      dict(eps_abs=1e-6, eps_rel=1e-6, adaptive_rho=False,
+                           dtype=np.float64)),
+    "fixed_rho_f32": (
+        lambda: _staggered(300, 16, 24, seed=4, eq_row=False),
+        dict(eps_abs=1e-3, eps_rel=1e-3, adaptive_rho=False,
+             dtype=np.float32)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(GRAPH_CASES))
 def test_graph_driver_equals_eager_on_card(dev, case):
     """A staggered batch that compacts (float64 and float32), a batch with
-    primal- and dual-infeasible lanes and a batch that reaches max_iter,
-    through ``BatchedSolver.solve`` and a prepared re-solve: the graph
-    path equals the eager path bit for bit."""
+    primal- and dual-infeasible lanes, a batch that reaches max_iter and a
+    staggered batch at a fixed rho (one leg; float64 and float32), through
+    ``BatchedSolver.solve`` and a prepared re-solve: the graph path equals
+    the eager path bit for bit."""
     make, kw = GRAPH_CASES[case]
     P, q, A, l, u = make()
     s = Settings(verbose=False, **kw)
@@ -1406,6 +1414,9 @@ def test_graph_driver_equals_eager_on_card(dev, case):
         assert (st[8:] == C.SOLVED).all()
     elif case == "max_iter":
         assert (st == C.MAX_ITER_REACHED).any()
+    elif case.startswith("fixed_rho"):
+        it = want.iter.cpu().numpy()
+        assert it.max() > it.min() and not want.rho_updates.any()
     else:
         it = want.iter.cpu().numpy()
         assert it.max() > it.min() and want.rho_updates[0] > 0

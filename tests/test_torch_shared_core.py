@@ -308,17 +308,15 @@ def _infeasible_batch():
 READ_CASES = {
     # every lane settles within the loop: the last leg's read decides
     "settled": (dict(max_iter=2000), True, {}),
-    # max_iter cuts the loop with lanes running: both finalize reads
-    "max_iter": (dict(max_iter=60), True,
-                 {"host_read.finalize_max_iter": 1,
-                  "host_read.finalize_cert": 1}),
+    # max_iter cuts the loop with lanes running: the last leg's read says
+    # how many; the certificates' read follows the re-checks
+    "max_iter": (dict(max_iter=60), True, {"host_read.finalize_cert": 1}),
     # the infeasible lanes end at iteration 50, the last lane at 100
     "certs_from_an_earlier_leg": (
         dict(max_iter=2000, eps_abs=1e-8, eps_rel=1e-8,
              adaptive_rho_interval=25), True, {}),
-    # adaptive rho off: one leg, and one read for both finalize questions
-    "fixed": (dict(max_iter=2000), False,
-              {"host_read.finalize_max_iter": 1}),
+    # adaptive rho off: one leg, whose read settles every lane
+    "fixed": (dict(max_iter=2000), False, {}),
 }
 
 
@@ -327,8 +325,9 @@ def test_driver_reads_once_a_leg(case, monkeypatch):
     """Each leg costs one read (``host_read.leg``) besides the leg
     wrapper's two: the rho decision, the running count and the count of
     lanes needing a certificate together. A loop that ends with no lane
-    running makes no read in ``_finalize``; a max_iter exit makes both;
-    certificates still come for lanes that ended legs before the last."""
+    running makes no read in ``_finalize``; a max_iter exit makes one, for
+    the certificates after the re-checks; certificates still come for
+    lanes that ended legs before the last. A fixed-rho solve is one leg."""
     kw, adaptive, fin = READ_CASES[case]
     statuses = []
     leg = TSC.admm_solve_shared
@@ -344,9 +343,7 @@ def test_driver_reads_once_a_leg(case, monkeypatch):
     _assert_same(ref, port, atol=1e-7)
     L = len(statuses)
     reads = {k: v for k, v in moved.items() if k.startswith("host_read.")}
-    want = {"host_read.leg_scalars": 2 * L, **fin}
-    if adaptive:
-        want["host_read.leg"] = L
+    want = {"host_read.leg_scalars": 2 * L, "host_read.leg": L, **fin}
     assert reads == want
     st = port.status.numpy()
     assert np.all(st[:2] == C.PRIMAL_INFEASIBLE) or case == "max_iter"
@@ -356,6 +353,8 @@ def test_driver_reads_once_a_leg(case, monkeypatch):
         assert np.abs(port.prim_cert.numpy()[:2]).max() > 0.1
     if case == "max_iter":
         assert L == 1 and np.any(st == C.MAX_ITER_REACHED)
+    if case == "fixed":
+        assert L == 1
     # the certificates of the lanes that need one
     np.testing.assert_allclose(port.prim_cert.numpy()[:2],
                                np.asarray(ref.prim_cert)[:2], atol=1e-8)
@@ -373,15 +372,15 @@ class _Replay:
             self.outputs[k].copy_(v)
 
 
-def _capture_on_cpu(self, name, body):
+def _capture_on_cpu(d, name, body):
     profiling.count("graph.driver_capture")
-    self.outputs[name] = body()
-    self.graphs[name] = _Replay(body, self.outputs[name])
+    d.outputs[name] = body()
+    d.graphs[name] = _Replay(body, d.outputs[name])
 
 
 def _shared_inputs(P, q, A, l, u, dtype):
-    """Scaled shared data and per-lane vectors as ``_prepared_solve``
-    hands them to the driver."""
+    """Scaled shared data and per-lane vectors as ``solve_lanes`` hands
+    them to the driver."""
     P, q, A, l, u = (torch.as_tensor(np.asarray(v), dtype=dtype)
                      for v in (P, q, A, l, u))
     l = torch.clamp(l, -C.OSQP_INFTY, C.OSQP_INFTY)
@@ -398,6 +397,7 @@ GRAPH_CASES = {
         1),
     "max_iter": (lambda: _staggered_cpu(), dict(max_iter=60,
                                                 adaptive_rho_interval=25), 2),
+    "fixed": (lambda: _staggered_cpu(), dict(adaptive_rho=False), 1),
 }
 
 
@@ -419,15 +419,16 @@ def _staggered_cpu():
                          ids=["f64", "f32"])
 @pytest.mark.parametrize("case", sorted(GRAPH_CASES))
 def test_graph_driver_equals_eager_on_cpu(case, dtype, monkeypatch):
-    """The driver on ``shared_graphs.DriverGraphs``, each captured chain
-    run eagerly on its static state: the same outputs as on the eager
-    driver's own buffers, bit for bit, and the same reads, over a cold call
-    that misses the factor cache and a warm one from its factor and
-    answer; each field of the answer a tensor of its own, apart from the
-    static state. Checks the host side of the graphs (the inputs and leg
-    outputs copied in, lane compaction, the answer's copies, the factor
-    carried out, the max_iter exit) where no card is."""
-    monkeypatch.setattr(SG.DriverGraphs, "_capture", _capture_on_cpu)
+    """The driver with its chains captured by ``shared_graphs.capture``,
+    each captured chain run eagerly on the driver's state, against an
+    uncaptured driver: the same outputs, bit for bit, and the same reads,
+    over a cold call that misses the factor cache and a warm one from its
+    factor and answer; each field of the captured driver's answer a tensor
+    of its own, apart from its state. Checks the host side of the graphs
+    (the inputs and leg outputs copied in, lane compaction, the answer's
+    copies, the factor carried out, the max_iter exit, the fixed-rho leg)
+    where no card is."""
+    monkeypatch.setattr(SG, "_capture", _capture_on_cpu)
     legs_run = []
     leg = TSC.admm_solve_shared
 
@@ -447,9 +448,11 @@ def test_graph_driver_equals_eager_on_cpu(case, dtype, monkeypatch):
                              rho_vec=torch.zeros(m, dtype=dtype),
                              rho_inv=torch.zeros(m, dtype=dtype),
                              rho_bar=torch.tensor(0.1, dtype=dtype))
-    graphs, captured = _counted(lambda: SG.DriverGraphs(
-        n, m, dyn, B, dtype, torch.device("cpu")))
-    assert captured == {"graph.driver_capture": 7}
+    graphs, captured = _counted(lambda: SG.capture(TSC._Driver(
+        n, m, dyn, B, dtype, torch.device("cpu"))))
+    adaptive = dyn.adaptive_rho != 0
+    # init, the two post-leg chains where rho adapts, four finalize chains
+    assert captured == {"graph.driver_capture": 5 + 2 * adaptive}
     starts = {"eager": (torch.zeros((B, n), dtype=dtype),
                         torch.zeros((B, m), dtype=dtype), factor)}
     starts["graph"] = starts["eager"]
@@ -492,8 +495,11 @@ def test_graph_driver_equals_eager_on_cpu(case, dtype, monkeypatch):
             assert cut == (case == "max_iter") or dtype == torch.float32
             if case == "staggered_compacts":
                 assert len(set(eo.iter.tolist())) > 2
-        on_rho = sum(e % dyn.adaptive_rho_interval == 0 for e in ends)
+        on_rho = adaptive * sum(e % dyn.adaptive_rho_interval == 0
+                                for e in ends)
         assert len(ends) == emoved["host_read.leg"]
+        if not adaptive:
+            assert ends == [dyn.max_iter] and not eo.rho_updates.any()
         assert replays == 1 + on_rho + (not cut)
         starts = {"eager": (eo.xbar, eo.ybar, ef), "graph": (go.xbar,
                                                               go.ybar, gf)}
