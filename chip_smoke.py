@@ -4,7 +4,7 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the torch and CUDA versions and the card's name and power limit;
-2. builds the four kernels (csrc/*.cu, one nvcc process per source, all at
+2. builds the five kernels (csrc/*.cu, one nvcc process per source, all at
    once) and times the build;
 3. holds the leg kernel against its plain PyTorch twin on the card, one leg
    of 100 iterations on 256 bench-shape QPs, in float64 (both routes: the
@@ -47,7 +47,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (the shared route) and float64 (the device route), every output within
    tools/ruiz_ab.py's REL_TOL, and times it beside its twin and its bound;
    each per-lane solve launches it once (phases 7, 8), a shared one never
-   (phase 4);
+   (phase 4); then holds the check kernel (csrc/check.cu) against its twin
+   on every check of a fleet call (float32, B=4096; tools/check_ab.py's
+   REL_TOL and band), and the call against the same call with the twin's
+   checks: statuses equal, mean iterations within 0.5%, one launch a chunk
+   and one in finalize;
 8. drives the rest of the solver's surface through its entry points:
    (a) polish=True on phase 4's batch (a shared cold solve, whose polish
    re-equilibrates every lane, and a prepared re-solve; every lane Solved,
@@ -208,7 +212,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    re-solves at the bench width (``tools/soak.py``): every lane Solved,
    no device-memory growth beyond one batch's workspace, leg launches a
    solve steady; it checks that the phase launched all three kernels;
-16. prints one JSON line of the four kernels (launch counts of their own
+16. prints one JSON line of the five kernels (launch counts of their own
    paths and of phases 8 to 15, agreement with the twins, times, and the
    least time the card could take for the same work), the nvidia-smi
    line, and last the device line ``{"ok": true, "device": {...}}``.
@@ -343,6 +347,68 @@ def in_turns(torch, fns, order):
     for k in order:
         times[k].append(wall_ms(torch, fns[k], 1)[0])
     return {k: [round(t, 2) for t in v] for k, v in times.items()}
+
+
+def phase7c_check(torch, BatchedSolver, Settings, reset_counts, counts, log,
+                  fleet64):
+    """Phase [7c]: the check kernel against its twin on every check of a
+    fleet call (``fleet64``: the fleet's lanes, float64 on the CPU), then
+    the call with the kernel against the call with the twin's checks.
+    Returns the numbers of its JSON row."""
+    from osqp_tpu_torch import batch_core as BCo
+    from osqp_tpu_torch.ops import check as CK
+    from osqp_tpu_torch.tools import check_ab as CA
+    fleet32 = [t.to("cuda", torch.float32).contiguous() for t in fleet64]
+    fleet_s = Settings(eps_abs=EPS, eps_rel=EPS, verbose=False,
+                       dtype=np.float32, max_iter=4000)
+    reset_counts()
+    _, rec, c_launched = CA.record_fleet(torch, BatchedSolver, fleet_s,
+                                         fleet32)
+    path7c = counts()
+    c_err, c_differ, c_band, c_masked = 0.0, 0, 0, True
+    for args, live, accurate in rec:
+        r = CA.compare(torch, CK.termination_check(*args, live, accurate),
+                       CK.check_reference(*args, live, accurate), args[2],
+                       live, accurate)
+        c_err, c_differ = max(c_err, r["rel"]), c_differ + r["differ"]
+        c_band, c_masked = c_band + r["band"], c_masked and r["masked_ok"]
+    live_share = (sum(int(lv.sum()) for _, lv, acc in rec if acc)
+                  / (B_MAIN * sum(acc for _, _, acc in rec)))
+    args0 = rec[0][0]
+    c_ms = cuda_ms(torch, lambda: CK.termination_check(*args0), 10)
+    c_plain_ms = cuda_ms(torch, lambda: CK.check_reference(*args0), 10)
+    c_bound = CA.byte_bound_ms(120, 200, 4, B_MAIN)
+    del rec, args0
+    k_out = BatchedSolver(fleet_s, kkt_mode="fused",
+                          device="cuda").solve(*fleet32)
+    with mock.patch.object(BCo, "termination_check", CK.check_reference):
+        t_out = BatchedSolver(fleet_s, kkt_mode="fused",
+                              device="cuda").solve(*fleet32)
+    mean_k = float(k_out.iter.float().mean())
+    mean_t = float(t_out.iter.float().mean())
+    say(f"[7c] check kernel, fleet call B={B_MAIN} n=120 m=200 f32: "
+        f"{c_launched} launches for {path7c['admm_iterate']} chunks; every "
+        f"check against the twin: largest residual difference {c_err:.3e} "
+        f"(tolerance {CA.REL_TOL['float32']:g}), {c_differ} statuses differ "
+        f"outside the band ({c_band} lane-checks in it), masked lanes as "
+        f"documented {c_masked}; live share of the loop's lane-checks "
+        f"{live_share:.4f}; every lane live: kernel {c_ms:.4f} ms, plain "
+        f"twin {c_plain_ms:.3f} ms, bound {c_bound:.4f} ms (bytes); the "
+        f"call with the kernel against the twin: statuses equal "
+        f"{bool(torch.equal(k_out.status, t_out.status))}, mean iterations "
+        f"{mean_k:.2f} / {mean_t:.2f}; ptxas: "
+        f"{ptxas_usage(log, 'check_kernelIfLb1ELi0E')}")
+    require(c_launched == path7c["admm_iterate"] + 1,
+            f"[7c] {c_launched} check launches, not the chunks + 1")
+    require(c_err <= CA.REL_TOL["float32"] and c_differ == 0 and c_masked,
+            "[7c] the check kernel differs from its twin")
+    require(torch.equal(k_out.status, t_out.status),
+            "[7c] the fleet call's statuses differ with the twin's checks")
+    require(abs(mean_k - mean_t) <= 0.005 * mean_t,
+            f"[7c] mean iterations {mean_k:.2f} against the twin's "
+            f"{mean_t:.2f}")
+    return dict(err=c_err, ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound,
+                live_share=live_share, launches=c_launched)
 
 
 def phase8_surface(torch, C, BatchedSolver, Settings, reset_counts,
@@ -1833,6 +1899,9 @@ def run(torch, oracles):
         require(err <= tol, f"[7r] {name}: the Ruiz kernel differs from "
                 f"the twin by {err:.3e} > {tol:g}")
         del data, got, want
+
+    check_row = phase7c_check(torch, BatchedSolver, Settings, reset_counts,
+                              counts, log, fleet64)
     del fleet64
 
     lane_settings = Settings(eps_abs=EPS, eps_rel=EPS, verbose=False,
@@ -1916,12 +1985,18 @@ def run(torch, oracles):
         variant=rr["route"], f64_route=ruiz_rows["f64"]["route"],
         f64_ms=ruiz_rows["f64"]["ms"],
         f64_max_rel_err=ruiz_rows["f64"]["err"]))
+    rows.append(dict(
+        name="termination_check", source="check.cu", replaces=None,
+        launches=check_row["launches"], max_rel_err=check_row["err"],
+        ms=check_row["ms"], plain_ms=check_row["plain_ms"],
+        bound_ms=check_row["bound_ms"], bound_by="bytes",
+        live_share=check_row["live_share"]))
     for r in rows:
-        # no single PyTorch call computes K ADMM iterations; the Ruiz
-        # kernel's library is its twin, torch's own ops
+        # no single PyTorch call computes K ADMM iterations; the Ruiz and
+        # check kernels' library is their twin, torch's own ops
         r.update(route="cuda", source="osqp_tpu_torch/csrc/" + r["source"],
-                 library_ms=(r["plain_ms"] if r["name"] == "equilibrate"
-                             else None),
+                 library_ms=(r["plain_ms"] if r["name"] in (
+                     "equilibrate", "termination_check") else None),
                  phase8_launches={k: v[r["name"]]
                                   for k, v in phase8.items()},
                  phase9_launches=phase9[r["name"]],

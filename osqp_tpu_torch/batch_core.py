@@ -16,7 +16,9 @@ Python loop with Python branches. Statuses change only at check
 iterations, so the loop reads the device (any lane running, any rho
 trigger) there and at rho-adaptation iterations only, never every
 iteration. The per-lane math of ``osqp_tpu/core.py`` that the JAX package
-vmaps is written with a batch axis in :mod:`osqp_tpu_torch.core`.
+vmaps is written with a batch axis in :mod:`osqp_tpu_torch.core`; on
+stacked CUDA lanes each check is one launch of the check kernel
+(:mod:`osqp_tpu_torch.ops.check`), which reads only the running lanes.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ import torch
 from . import constants as C
 from .core import (ResInfo, build_rho_vec, constraint_masks,
                    dual_infeasibility, primal_infeasibility, residual_norms,
-                   scale_problem, termination_status)
+                   scale_problem)
 from .linalg import chol_factor, with_precision
+from .ops.check import check_reference, termination_check
 from .ops.fused_iter import admm_iterate
 from .ops.shared_iter import dot3, split_bf16
 from .polish import polish
@@ -174,13 +177,17 @@ class _Adapt:
         return True
 
 
-def _check(sdata, scal, dyn, x, y, z, dx, dy, accurate: bool = True):
-    """Every lane's termination decision; ``accurate=False`` is the
-    10x-loosened check for the inaccurate statuses."""
-    eps_factor = 1.0 if accurate else C.INACCURATE_EPS_FACTOR
-    return termination_status(sdata, scal, dyn, x, y, z, dx, dy,
-                              torch.tensor(eps_factor, dtype=x.dtype),
-                              accurate=accurate)
+def _check(sdata, scal, dyn, x, y, z, x_prev, y_prev, live,
+           accurate: bool = True):
+    """Every live lane's termination decision, the certificates on the
+    steps x − x_prev, y − y_prev; ``accurate=False`` is the 10x-loosened
+    check for the inaccurate statuses. A lane outside ``live`` reads
+    status RUNNING and NaN residuals (:mod:`osqp_tpu_torch.ops.check`), so
+    callers merge by ``live``. Stacked CUDA lanes take the check kernel,
+    one launch (a dtype other than float32 and float64 raises); CPU lanes
+    take its plain twin, ``core.termination_status``."""
+    check = termination_check if sdata.P.is_cuda else check_reference
+    return check(sdata, scal, dyn, x, y, z, x_prev, y_prev, live, accurate)
 
 
 @with_precision
@@ -248,10 +255,10 @@ def solve_batch_scaled(sdata: QPData, scal: ScalingData, dyn: DynParams,
         do_rho = dyn.adaptive_rho != 0 and it % rho_int == 0
         if not (do_check or do_rho):
             continue
-        # certificate deltas over the check window (snapshot below)
-        dx, dy = x - x_prev, y - y_prev
         if do_check:
-            status_new, res = _check(sdata, scal, dyn, x, y, z, dx, dy)
+            # certificates on the steps since the last snapshot (below)
+            status_new, res = _check(sdata, scal, dyn, x, y, z, x_prev,
+                                     y_prev, live)
             status = torch.where(live, status_new, status)
             iters = torch.where(live & (status != C.RUNNING), it, iters)
             if it % (check_t * 4) == 0:
@@ -292,9 +299,8 @@ def _finalize(sdata, scal, dyn, x, y, z, x_prev, y_prev, status, iters,
     computes them), objective and status conventions."""
     dtype = x.dtype
     hit_max = status == C.RUNNING
-    dx, dy = x - x_prev, y - y_prev
-    approx_status, approx_res = _check(sdata, scal, dyn, x, y, z, dx, dy,
-                                       accurate=False)
+    approx_status, approx_res = _check(sdata, scal, dyn, x, y, z, x_prev,
+                                       y_prev, hit_max, accurate=False)
     allow = dyn.check_termination > 0 and dyn.final_approx != 0
     status = torch.where(
         hit_max,
@@ -308,8 +314,10 @@ def _finalize(sdata, scal, dyn, x, y, z, x_prev, y_prev, status, iters,
     xu = scal.D * x
     yu = scal.cinv[:, None] * scal.E * y
     zu = scal.Einv * z
-    _, prim_cert = primal_infeasibility(sdata, scal, dy, dyn.eps_prim_inf)
-    _, dual_cert = dual_infeasibility(sdata, scal, dx, dyn.eps_dual_inf)
+    _, prim_cert = primal_infeasibility(sdata, scal, y - y_prev,
+                                        dyn.eps_prim_inf)
+    _, dual_cert = dual_infeasibility(sdata, scal, x - x_prev,
+                                      dyn.eps_dual_inf)
     obj = scal.cinv * (0.5 * torch.sum(x * _bmm(sdata.P, x), dim=1)
                        + torch.sum(sdata.q * x, dim=1))
     obj = torch.where(status == C.NON_CONVEX, float("nan"), obj)
@@ -374,8 +382,8 @@ def solve_batch_fused(sdata: QPData, scal: ScalingData, dyn: DynParams,
         z = torch.where(lx, zk, z)
         it += K
         with profiling.annotate("osqp.driver.check"):
-            status_new, res = _check(sdata, scal, dyn, x, y, z, x - x_prev,
-                                     y - y_prev)
+            status_new, res = _check(sdata, scal, dyn, x, y, z, x_prev,
+                                     y_prev, live)
         if dyn.check_termination > 0:
             status = torch.where(live, status_new, status)
         iters = torch.where(live & (status != C.RUNNING), it, iters)

@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCES = tuple(_PKG / "csrc" / f for f in
                  ("solve_kernel.cu", "shared_iter.cu", "fused_iter.cu",
-                  "ruiz.cu"))
+                  "ruiz.cu", "check.cu"))
 _HEADERS = tuple(_PKG / "csrc" / f for f in
                  ("fused_layout.h", "tiled_product.h", "shared_iter_layout.h"))
 BUILD_DIR = _PKG / ".build"
@@ -104,6 +104,9 @@ def _signatures():
         "osqp_admm_iterate_smem_bytes": (ll, [i] * 4),
         "osqp_ruiz_equilibrate": (i, [i, i] + [vp] * 17 + [i] * 4 + [vp]),
         "osqp_ruiz_smem_bytes": (ll, [i] * 4),
+        "osqp_termination_check": (i, [i] * 3 + [vp] + [i] * 3 + [d] * 4
+                                   + [i, i, vp]),
+        "osqp_termination_check_smem_bytes": (ll, [i] * 4),
         "osqp_cuda_error_string": (ctypes.c_char_p, [i]),
     }
 

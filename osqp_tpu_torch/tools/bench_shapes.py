@@ -313,13 +313,16 @@ def hold_text(h):
 
 
 #: The wrappers of the three kernels that port the TPU kernels; the
-#: fourth of :func:`kernel_wrappers`, ``equilibrate``, replaces none.
+#: fourth and fifth of :func:`kernel_wrappers`, ``equilibrate`` and
+#: ``termination_check``, replace none.
 TPU_KERNELS = ("admm_solve_shared", "admm_iterate_shared", "admm_iterate")
 
 
 def kernel_wrappers():
-    """The four kernels' wrappers by name (each keeps its launch count):
-    the three of ``TPU_KERNELS`` and the per-lane Ruiz kernel's."""
+    """The five kernels' wrappers by name (each keeps its launch count):
+    the three of ``TPU_KERNELS``, the per-lane Ruiz kernel's and the
+    per-lane check kernel's."""
+    from ..ops import check as CK
     from ..ops import fused_iter as FI
     from ..ops import ruiz as RZ
     from ..ops import shared_iter as SI
@@ -327,7 +330,8 @@ def kernel_wrappers():
     return {"admm_solve_shared": SK.admm_solve_shared,
             "admm_iterate_shared": SI.admm_iterate_shared,
             "admm_iterate": FI.admm_iterate,
-            "equilibrate": RZ.equilibrate}
+            "equilibrate": RZ.equilibrate,
+            "termination_check": CK.termination_check}
 
 
 class Run:
